@@ -1,0 +1,87 @@
+"""Command-line driver: `python -m fem_tpu_torch -f <deck.inp> [--device cpu]`.
+
+Port of `fem_tpu.cli` for the linear path. Mirrors the reference CLI
+`defmod -f <file>` (main.F90:31-33) and writes `0_output_000000.vtk` in the
+working directory like the reference's rank-0 writer (m_io.F90:496). Runs on
+the CUDA device by default; `--device cpu` asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="fem_tpu_torch",
+        description="PyTorch/CUDA FEM solver (defmod-compatible decks)",
+    )
+    ap.add_argument("-f", dest="input_file", help="input .inp deck")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument(
+        "--solver", default="auto", choices=["auto", "direct", "cg"],
+        help="linear solver (default: auto)"
+    )
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32"])
+    ap.add_argument(
+        "--bc-mode", default="auto", choices=["auto", "penalty", "eliminate"]
+    )
+    ap.add_argument("--plane-stress", action="store_true",
+                    help="treat 2D elements as plane stress (the reference "
+                         "is plane strain only)")
+    ap.add_argument("-o", "--output-prefix", default="",
+                    help="directory/prefix for VTK output")
+    ap.add_argument("-q", "--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    if not args.input_file:
+        print("Usage: python -m fem_tpu_torch -f <filename>")
+        return 1
+
+    def log(msg: str) -> None:
+        if not args.quiet:
+            print(msg, flush=True)
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import vtk
+    from fem_tpu_torch.models import problem as problem_mod
+    from fem_tpu_torch.solver import stepper
+
+    log("Reading input ...")
+    if not os.path.exists(args.input_file):
+        print(f"error: input file not found: {args.input_file}",
+              file=sys.stderr)
+        return 1
+    try:
+        problem = problem_mod.load(args.input_file)
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: cannot parse {args.input_file}: {e}", file=sys.stderr)
+        return 1
+    config = Config(
+        device=args.device,
+        dtype=args.dtype,
+        solver=args.solver,
+        bc_mode=args.bc_mode,
+        plane_stress=args.plane_stress,
+    )
+    log("Forming [K] ...")
+    t0 = time.perf_counter()
+    result = stepper.run(problem, config, log=log)
+    log(f"Solved {result.nsteps} step(s) in {time.perf_counter() - t0:.3f}s")
+    vtk.write(
+        f"{args.output_prefix}0_output_000000.vtk",
+        problem.coords,
+        vtk.cells_in_deck_order(problem),
+        result.aggregate_stress,
+        result.aggregate_u,
+    )
+    log("Finished")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,214 @@
+"""Device-side FEM system, continuum part: assembly, RHS, stress recovery.
+
+Port of the continuum part of `fem_tpu.models.system`, the replacement for
+m_global.F90's PETSc-centric global layer: the whole system lives in device
+tensors and assembly is an index_put/index_add scatter.
+
+A System precomputes, per continuum element type block:
+  - gathered element coordinates  (ne, nn, pdim)   (gathered on the host)
+  - per-element E, nu             (ne,)   [E=0 for mat -1 — FormLocalK
+    m_global.F90:250-253]
+  - interleaved dof index arrays  (ne, ndof_e)
+and lazily the element stiffness (ne, ndof_e, ndof_e) and D matrices.
+It exposes dense_K() / matvec(u) / diag(), rhs(t_init), bc_step_vals() and
+stress_increment(du).
+
+Cohesive blocks take no part in the elastic operator or stress recovery (as
+in fem_tpu); their own terms are not ported yet (ROADMAP A.7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from fem_tpu_torch.config import resolve_device
+from fem_tpu_torch.models.problem import Problem
+from fem_tpu_torch.ops import dmat as dmat_ops
+from fem_tpu_torch.ops import stiffness as stiff_ops
+
+PENALTY = 1.0e30  # PENALTY_PARAM (m_global.F90:15)
+
+
+class System:
+    def __init__(self, problem: Problem, dtype=torch.float64, *, device,
+                 plane_stress: bool = False):
+        """device: torch device (or its name) every tensor lives on; CUDA
+        requested and absent raises.
+
+        plane_stress: treat 2D elements as plane stress instead of the
+        reference's plane strain, exactly, via E' = E(1+2nu)/(1+nu)^2,
+        nu' = nu/(1+nu) (every plane-strain formula downstream then produces
+        the plane-stress law)."""
+        self.problem = problem
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.plane_stress = bool(plane_stress) and problem.pdim == 2
+        p = problem
+        self.pdim = p.pdim
+        self.cpdim = 3 if p.pdim == 2 else 6
+        self.ndof = p.ndof
+        self.nnds = p.nnds
+
+        # Material table with a zero row appended so mat == -1 indexes
+        # E=0, nu=0 — replicating FormLocalK's explicit zeroing.
+        mats = np.vstack([p.mats, np.zeros((1, p.mats.shape[1]))])
+        if self.plane_stress:
+            E, nu = mats[:, 0].copy(), mats[:, 1].copy()
+            mats[:, 0] = E * (1.0 + 2.0 * nu) / (1.0 + nu) ** 2
+            mats[:, 1] = nu / (1.0 + nu)
+
+        self.blocks: Dict[str, dict] = {}
+        for name, b in p.blocks.items():
+            if name == "coh":
+                continue
+            et = b.et
+            conn = self._t(b.conn, torch.int64)
+            self.blocks[name] = dict(
+                et=et,
+                conn=conn,
+                # gathered on the host: setup is host work, and one numpy
+                # gather avoids a device round trip per block
+                ecoords=self._t(p.coords[b.conn]),
+                edofs=stiff_ops.element_dofs(et, conn),
+                E=self._t(mats[b.mat, 0]),
+                nu=self._t(mats[b.mat, 1]),
+            )
+
+        self.bc_dofs = self._t(p.bc_dofs, torch.int64)
+        self.bc_vals = self._t(p.bc_vals)
+        self.force_dofs = self._t(p.force_dofs, torch.int64)
+        self.force_vec = self._t(p.force_vec)
+        self.force_t1 = self._t(p.force_t1)
+        self.force_t2 = self._t(p.force_t2)
+        self.trac_dofs = self._t(p.trac_dofs, torch.int64)
+        self.trac_nodal_vec = self._t(p.trac_nodal_vec)
+        # per-node weights: 0.0 on padding rows of mixed-nps traction tables
+        self.trac_node_w = self._t(
+            p.trac_node_w if p.trac_node_w is not None
+            else np.ones(p.trac_dofs.shape[:2]))
+        # FormRHS divides traction windows by dt (m_global.F90:414-415) —
+        # a reference quirk, replicated for deck compatibility.
+        self.trac_t1 = self._t(p.trac_t1 / p.dt)
+        self.trac_t2 = self._t(p.trac_t2 / p.dt)
+
+        self.dt = float(p.dt)
+        self.t_total = float(p.t)
+
+    def _t(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
+                               device=self.device)
+
+    # ---------------- elastic operator ----------------
+
+    def _continuum(self, need_ke: bool = True):
+        """Continuum blocks with lazily built per-element data; need_ke=False
+        skips the (ne, ndof_e, ndof_e) element stiffness (stress recovery
+        needs only D)."""
+        for e in self.blocks.values():
+            if need_ke and "ke" not in e:
+                e["ke"] = stiff_ops.element_stiffness_isotropic(
+                    e["et"], e["ecoords"], e["E"], e["nu"])
+            if "D" not in e:
+                e["D"] = dmat_ops.dmat(e["E"], e["nu"], self.pdim)
+        return list(self.blocks.values())
+
+    def dense_K(self):
+        """Assembled elastic stiffness, no BCs (main.F90:157-168). Cached: K
+        is constant for the whole run (small-deformation static)."""
+        if getattr(self, "_dense_K", None) is None:
+            K = torch.zeros((self.ndof, self.ndof), dtype=self.dtype,
+                            device=self.device)
+            for e in self._continuum():
+                edofs = e["edofs"]
+                K.index_put_((edofs[:, :, None], edofs[:, None, :]), e["ke"],
+                             accumulate=True)
+            self._dense_K = K
+        return self._dense_K
+
+    def matvec(self, u):
+        """Matrix-free K @ u: gather -> batched k_e @ u_e -> scatter-add."""
+        out = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
+        for e in self._continuum():
+            fe = torch.einsum("eab,eb->ea", e["ke"], u[e["edofs"]])
+            out.index_add_(0, e["edofs"].reshape(-1), fe.reshape(-1))
+        return out
+
+    def diag(self):
+        """Diagonal of K (Jacobi preconditioner)."""
+        d = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
+        for e in self._continuum():
+            ke_diag = torch.diagonal(e["ke"], dim1=1, dim2=2)
+            d.index_add_(0, e["edofs"].reshape(-1), ke_diag.reshape(-1))
+        return d
+
+    # ---------------- loads ----------------
+
+    def rhs(self, t_init):
+        """Time-windowed external load vector (FormRHS, m_global.F90:373-436).
+
+        Each step applies the fraction overlap([t_init, t_init+dt], [t1,t2])
+        / (t2-t1) of every load (m_global.F90:400-426). BC forcing is NOT
+        included here; solvers apply it per bc_mode.
+        """
+        t_init = torch.as_tensor(t_init, dtype=self.dtype, device=self.device)
+        t_end = t_init + self.dt
+        F = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
+        if self.force_dofs.shape[0]:
+            frac = _window_fraction(t_init, t_end, self.force_t1, self.force_t2)
+            contrib = self.force_vec * frac[:, None]
+            F.index_add_(0, self.force_dofs.reshape(-1), contrib.reshape(-1))
+        if self.trac_dofs.shape[0]:
+            frac = _window_fraction(t_init, t_end, self.trac_t1, self.trac_t2)
+            contrib = self.trac_nodal_vec * frac[:, None]  # (nt, pdim)
+            contrib = contrib[:, None, :] * self.trac_node_w[:, :, None]
+            F.index_add_(0, self.trac_dofs.reshape(-1), contrib.reshape(-1))
+        return F
+
+    def bc_step_vals(self):
+        """Per-step prescribed displacement: bcval * dt / t — the linear ramp
+        (EnforceBCForce, m_global.F90:451)."""
+        return self.bc_vals * (self.dt / self.t_total)
+
+    def coh_force(self, u_total):
+        raise NotImplementedError(
+            "cohesive element terms are not ported yet (ROADMAP A.7)")
+
+    # ---------------- stress ----------------
+
+    def stress_increment(self, du):
+        """Nodal-averaged stress from the step increment du.
+
+        Mirrors RecoverStress + RecoverNodalStress + the count/average block
+        (m_global.F90:466-515, main.F90:252-291): per-element ip stress from
+        the *increment*, extrapolated to nodes, summed per node, divided by
+        the number of contributing elements. Cohesive elements are excluded
+        (the reference's coh branch is undefined behaviour, see fem_tpu).
+        Returns (nnds, cpdim).
+        """
+        sums = torch.zeros((self.nnds, self.cpdim), dtype=self.dtype,
+                           device=self.device)
+        counts = torch.zeros(self.nnds, dtype=self.dtype, device=self.device)
+        for e in self._continuum(need_ke=False):
+            et = e["et"]
+            sig_ip = stiff_ops.element_stress(et, e["ecoords"], du[e["edofs"]],
+                                              e["D"])
+            sig_nodes = stiff_ops.nodal_stress(et, sig_ip)
+            conn_flat = e["conn"].reshape(-1)
+            sums.index_add_(0, conn_flat, sig_nodes.reshape(-1, self.cpdim))
+            counts.index_add_(0, conn_flat, torch.ones_like(conn_flat,
+                                                            dtype=self.dtype))
+        return sums / torch.clamp(counts, min=1.0)[:, None]
+
+
+def _window_fraction(t_init, t_end, t1, t2):
+    """overlap([t_init,t_end],[t1,t2]) / (t2-t1), zero outside the window
+    (m_global.F90:400-426). Zero-length windows are guarded to 0."""
+    applied = torch.minimum(t2, t_end) - torch.maximum(t1, t_init)
+    width = t2 - t1
+    active = (t_end >= t1) & (t_init <= t2) & (width > 0)
+    return torch.where(active, applied / torch.where(width > 0, width,
+                                                     torch.ones_like(width)),
+                       torch.zeros_like(width))

@@ -16,7 +16,18 @@ Phases, each of which exits non-zero when it fails:
      the same run on the CPU;
   7. stepper.run on the 80^3 hex8 box (1,594,323 DOFs, float64) through the
      structured MG-CG path, with the true relative residual recomputed with
-     K2's plain version, and the launch counts of that run.
+     K2's plain version, and the launch counts of that run;
+  8. kernel K3 (ELL SpMV) against its plain version, float64 and float32,
+     on a random table (n = 200,000, w = 81) and, in phase 9, on the real
+     prolongation, restriction and ELL mid-level tables of the 526,848-DOF
+     SA-AMG hierarchy, with both times and each table's padding;
+  9. the permuted, jittered 55^3 hex8 box (526,848 DOFs, float64): host
+     set-up phases (assemble_csr, amg.build with its level sizes, fused
+     operator), then stepper.run through unstructured_amg_or_lattice_gmg_cg
+     with SA-AMG, its launch counts, and the true relative residual
+     recomputed with assemble_csr's matrix as a torch sparse CSR product;
+ 10. the same box in lex order through the block stencil and lattice GMG,
+     with the same residual check.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero before printing any result.
@@ -69,9 +80,9 @@ def main():
     from fem_tpu_torch.io import meshgen, vtk
     from fem_tpu_torch.models.system import System
     from fem_tpu_torch.ops import cuda_kernels as ck
-    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.ops import operator, structured
     from fem_tpu_torch.ops.stiffness import lame
-    from fem_tpu_torch.solver import cg, stepper
+    from fem_tpu_torch.solver import amg, cg, stepper
 
     # float32 products in the plain versions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,11 +262,171 @@ def main():
     for name in ("hex8_stiffness", "stencil_matvec"):
         check(launches[name] > 0, f"the 80^3 run launched no {name}")
 
+    # 8. K3 against its plain version on a random table
+    def k3_case(vals, cols, x, label, reps=50):
+        """K3 against its plain version in float64 and float32; returns the
+        float64 (max abs err, kernel ms, plain ms)."""
+        w, n = vals.shape
+        nnz = int((vals != 0).sum())
+        print(f"K3 {label}: n {n}, w {w}, lanes {ck.ell_lanes(w)}, padding "
+              f"{vals.numel() / max(nnz, 1):.3f} slots per nonzero",
+              flush=True)
+        out = None
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            name = str(dtype).split(".")[-1]
+            v, xx = vals.to(dtype).contiguous(), x.to(dtype)
+            got = ck.ell_matvec(v, cols, xx)
+            ref = ck.ell_matvec_plain(v, cols, xx)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"K3 {label}: non-finite")
+            err = float((got - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-300)
+            check(rel <= tol, f"K3 {name} {label}: max rel diff {rel} > {tol}")
+            ms = time_ms(torch, lambda: ck.ell_matvec(v, cols, xx), reps)
+            plain_ms = time_ms(
+                torch, lambda: ck.ell_matvec_plain(v, cols, xx), 10)
+            print(f"K3 {name} {label}: max rel diff {rel:.3e} (tol "
+                  f"{tol:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
+            if out is None:
+                out = (err, ms, plain_ms)
+        return out
+
+    rng = np.random.default_rng(0)
+    n_r = 200000
+    k3_case(torch.as_tensor(rng.standard_normal((81, n_r)), device=dev),
+            torch.as_tensor(rng.integers(0, n_r, (81, n_r)), dtype=torch.int32,
+                            device=dev),
+            torch.as_tensor(rng.standard_normal(n_r), device=dev),
+            "random n=200000 w=81")
+
+    # 9. the permuted 55^3 box: set-up phases, K3 on the real tables, and
+    # stepper.run through SA-AMG
+    def box55(permute):
+        p = meshgen.hex_box_problem(55, 55, 55, lx=1.0, ly=1.0, lz=1.0,
+                                    E=200e9, nu=0.3, tip_load=-1e6,
+                                    jitter=0.25, seed=0)
+        p = meshgen.permute_nodes(p, seed=0) if permute else p
+        check(p.ndof == 526848, f"55^3 box has {p.ndof} DOFs")
+        return p
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def true_rel_residual(system, A_csr, u):
+        """||b - K u|| / ||b|| of the masked system, K from assemble_csr as
+        a torch sparse CSR product on the card (a check, not the path)."""
+        K = torch.sparse_csr_tensor(
+            torch.as_tensor(A_csr.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(A_csr.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(A_csr.data, dtype=torch.float64, device=dev),
+            size=A_csr.shape, check_invariants=True)
+
+        def kmv(v):
+            return (K @ v.unsqueeze(1)).squeeze(1)
+
+        mask = torch.zeros(system.ndof, dtype=torch.bool, device=dev)
+        mask[system.bc_dofs] = True
+        b = cg.constrained_rhs(kmv, system.rhs(0.0), mask, torch.zeros_like(u))
+        r = b - cg.masked_operator(kmv, mask)(u)
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b))
+
+    perm = box55(permute=True)
+    system, t_sys = timed(lambda: System(perm, torch.float64, device=dev))
+    A_csr, t_asm = timed(lambda: amg.assemble_csr(system))
+    hier, t_amg = timed(lambda: amg.build(system, system.bc_dofs,
+                                          coarse_max=20000, A=A_csr))
+    _, t_op = timed(lambda: operator.build(system))
+    sizes = [system.ndof] + [lv.n_coarse for lv in hier.levels[:-1]]
+    print(f"permuted 55^3 box ({perm.ndof} DOFs) set-up on the host: System "
+          f"{t_sys:.2f} s, assemble_csr {t_asm:.2f} s ({A_csr.nnz} nonzeros), "
+          f"amg.build {t_amg:.2f} s (level sizes {sizes}), fused operator "
+          f"{t_op:.2f} s", flush=True)
+    k3_real = None
+    for i, lv in enumerate(hier.levels[:-1]):
+        n_f = lv.dinv.shape[0]
+        tables = [("P", lv.P, lv.n_coarse), ("R", lv.R, n_f)]
+        if lv.op is not None:
+            tables.append(("A (ELL mid level)", lv.op, n_f))
+        for name, e, nx in tables:
+            x = torch.as_tensor(rng.standard_normal(nx), device=dev)
+            res_k3 = k3_case(e.vals, e.cols, x, f"level {i} {name}")
+            if i == 0 and name == "P":
+                k3_real = res_k3
+    check(k3_real is not None, "the 55^3 hierarchy has no transfer level")
+    del hier
+
+    ck.reset_launches()
+    msgs = []
+    res, wall = timed(lambda: stepper.run(perm, Config(device="cuda"),
+                                          log=msgs.append))
+    launches_amg = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    check(res.path == "unstructured_amg_or_lattice_gmg_cg",
+          f"permuted 55^3 box took path {res.path}")
+    check(any("smoothed aggregation" in m for m in msgs)
+          and not any("Lattice topology" in m or "lattice-MG" in m
+                      for m in msgs),
+          "the permuted 55^3 box did not take the fused operator and SA-AMG")
+    u = torch.as_tensor(res.aggregate_u, device=dev)
+    check(bool(torch.isfinite(u).all())
+          and res.aggregate_stress.shape == (perm.nnds, 6)
+          and bool(np.isfinite(res.aggregate_stress).all()),
+          "permuted 55^3 solution or stress not finite / wrong shape")
+    true_rel = true_rel_residual(system, A_csr, u)
+    print(f"permuted 55^3 box ({perm.ndof} DOFs, float64): SA-AMG-CG "
+          f"iterations {res.krylov_iters}, true rel residual {true_rel:.3e}, "
+          f"stepper.run wall {wall:.2f} s, min u_z "
+          f"{float(u.reshape(-1, 3)[:, 2].min()):.6e}, launches "
+          f"{launches_amg}", flush=True)
+    check(true_rel <= 1e-8, f"permuted 55^3 true rel residual {true_rel}")
+    for name in ("hex8_stiffness", "ell_matvec"):
+        check(launches_amg[name] > 0, f"the SA-AMG run launched no {name}")
+    del system, A_csr, u
+
+    # 10. the lex-ordered 55^3 box: block stencil + lattice GMG
+    lex = box55(permute=False)
+    ck.reset_launches()
+    msgs = []
+    res, wall = timed(lambda: stepper.run(lex, Config(device="cuda"),
+                                          log=msgs.append))
+    launches_gmg = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    check(res.path == "unstructured_amg_or_lattice_gmg_cg",
+          f"lex 55^3 box took path {res.path}")
+    check(any("Geometric lattice-MG" in m for m in msgs)
+          and not any("demotion" in m for m in msgs),
+          "the lex 55^3 box did not solve with lattice GMG")
+    system = System(lex, torch.float64, device=dev)
+    u = torch.as_tensor(res.aggregate_u, device=dev)
+    check(bool(torch.isfinite(u).all())
+          and bool(np.isfinite(res.aggregate_stress).all()),
+          "lex 55^3 solution or stress not finite")
+    true_rel = true_rel_residual(system, amg.assemble_csr(system), u)
+    print(f"lex 55^3 box ({lex.ndof} DOFs, float64): GMG-CG iterations "
+          f"{res.krylov_iters}, true rel residual {true_rel:.3e}, "
+          f"stepper.run wall {wall:.2f} s, launches {launches_gmg}",
+          flush=True)
+    check(true_rel <= 1e-8, f"lex 55^3 true rel residual {true_rel}")
+    check(launches_gmg["hex8_stiffness"] > 0, "the GMG run launched no K1")
+
+    summary["ell_matvec"] = k3_real
+    launches["ell_matvec"] = launches_amg["ell_matvec"]
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),
         "stencil_matvec": ("fem_tpu_torch/csrc/stencil_matvec.cu",
                            "fem_tpu/ops/pallas_kernels.py:302"),
+        "ell_matvec": ("fem_tpu_torch/csrc/ell_matvec.cu",
+                       "fem_tpu/ops/pallas_kernels.py:432"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

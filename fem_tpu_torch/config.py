@@ -35,8 +35,12 @@ class Config:
         m_global.F90:296,451); "eliminate" pins constrained DOFs exactly.
         "auto": penalty for direct solves, eliminate for iterative ones.
       precond: preconditioner of the unstructured iterative path: "jacobi",
-        or "auto" (AMG at/above `amg_threshold` DOFs, which is not ported
-        yet). Structured box decks use geometric multigrid regardless.
+        "amg" (SA-AMG, or geometric lattice MG on lattice-topology decks
+        above `gmg_min` DOFs), or "auto" (amg at/above `amg_threshold` DOFs).
+        Structured box decks use geometric multigrid regardless.
+      gmg_min: lattice-topology decks with more DOFs than this take lattice
+        GMG on the amg path; at or below it they take SA-AMG, whose coarse
+        solve is then exact (the counterpart of fem_tpu's FEM_TPU_GMG_MIN).
       plane_stress: treat 2D elements as plane stress (beyond-reference).
     """
 
@@ -49,6 +53,7 @@ class Config:
     bc_mode: str = "auto"
     precond: str = "auto"
     amg_threshold: int = 20000
+    gmg_min: int = 20000
     plane_stress: bool = False
     direct_threshold: int = 4096
     # Not ported yet: setting any of these raises (see __post_init__).
@@ -64,7 +69,6 @@ class Config:
              "multi-device runs (n_devices > 1)", "A.9"),
             (self.checkpoint_dir is not None, "checkpoint/resume", "A.8"),
             (self.profile_dir is not None, "profiler traces", "A.8"),
-            (self.precond == "amg", "the AMG preconditioner", "A.6"),
         )
         for is_set, what, item in unported:
             if is_set:

@@ -5,11 +5,13 @@ its smoke run use. `quad_strip_deck` ports the reference's make_example.F90
 tool (an N x M structured quad strip with 2 pinned corner nodes and 2 end
 forces, written in the legacy 7-count deck format, make_example.F90:33-140).
 The builders below it construct `Problem` objects directly in numpy — no text
-round-trip — for large-scale tests and runs (e.g. the hex8 cantilever box).
+round-trip — for large-scale tests and runs (e.g. the hex8 cantilever box);
+`permute_nodes` scrambles a Problem's node numbering.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -228,4 +230,36 @@ def hex_box_problem(
         trac_nodal_vec=np.zeros((0, 3)),
         trac_t1=np.zeros(0),
         trac_t2=np.zeros(0),
+    )
+
+
+def permute_nodes(problem: Problem, seed: int = 0) -> Problem:
+    """Randomly renumber the nodes of a Problem (same physics, scrambled
+    ids). Scrambling destroys the lex-lattice node ordering, so the
+    unstructured path takes the fused-gather operator and SA-AMG: the
+    deterministic way to exercise genuinely unstructured code paths on
+    generated grids (the reference's parsers accept any node numbering,
+    m_io.F90)."""
+    rng = np.random.default_rng(seed)
+    nnds = problem.coords.shape[0]
+    perm = rng.permutation(nnds)  # new_id = inv[old_id]
+    inv = np.empty(nnds, dtype=np.int64)
+    inv[perm] = np.arange(nnds)
+    pdim = problem.pdim
+
+    def remap_dofs(d):
+        node, comp = d // pdim, d % pdim
+        return (inv[node] * pdim + comp).astype(d.dtype)
+
+    blocks = {
+        name: dataclasses.replace(b, conn=inv[b.conn].astype(b.conn.dtype))
+        for name, b in problem.blocks.items()
+    }
+    return dataclasses.replace(
+        problem,
+        coords=problem.coords[perm],
+        blocks=blocks,
+        bc_dofs=remap_dofs(problem.bc_dofs),
+        force_dofs=remap_dofs(problem.force_dofs),
+        trac_dofs=remap_dofs(problem.trac_dofs),
     )

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of `fem_tpu_torch/csrc/`.
 
-The sources have a plain C interface. At first use they are compiled with
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-into one shared library under `build/kernels/` at the repository root (listed
-in .gitignore), named by a hash of the sources and flags so that an edited
-source is rebuilt, and loaded with ctypes. Nothing is built or loaded at
-import time: the CPU tests import every module of the package.
+The sources have a plain C interface. At first use each is compiled with
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC`, one
+nvcc process per source, all started together; the objects are then linked
+into one shared library under `build/kernels/` at the repository root
+(listed in .gitignore), named by a hash of the sources and flags so that an
+edited source is rebuilt, and loaded with ctypes. Nothing is built or loaded
+at import time: the CPU tests import every module of the package.
 
 nvcc is taken from PATH, else $CUDA_HOME/bin, else /usr/local/cuda/bin.
 """
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 # C entry point -> argtypes; every entry point returns cudaGetLastError().
@@ -35,6 +36,10 @@ SIGNATURES = {
                            ctypes.c_int, _P],
     "stencil_matvec_f32": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P],
+    "ell_matvec_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, _P],
+    "ell_matvec_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, _P],
 }
 
 
@@ -61,21 +66,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists. The
-    compiler's report (registers, spills per kernel) is kept beside it as
+    """Compile the sources unless the library for their hash exists: one
+    nvcc per source, run in parallel, then one link. The compilers' report
+    (registers, spills per kernel) is kept beside the library as
     `<library>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    stem = out.with_suffix(f".{os.getpid()}")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-           f"\n[{time.perf_counter() - t0:.1f} s, exit {proc.returncode}]\n")
+    jobs = []
+    for src in _sources():
+        obj = Path(f"{stem}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, ok = "", True
+    for cmd, _, proc in jobs:
+        report = proc.communicate()[0]
+        log += f"$ {' '.join(cmd)}\n{report}[exit {proc.returncode}]\n"
+        ok = ok and proc.returncode == 0
+    tmp = Path(f"{stem}.tmp")
+    if ok:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}[exit {proc.returncode}]\n"
+        ok = proc.returncode == 0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log += f"[{time.perf_counter() - t0:.1f} s]\n"
     out.with_suffix(".so.log").write_text(log)
-    if proc.returncode != 0:
+    if not ok:
         raise RuntimeError(f"nvcc failed building the CUDA kernels:\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
     return out

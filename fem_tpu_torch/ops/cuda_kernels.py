@@ -6,14 +6,12 @@ checked against on the card), the wrapper, and a launch count.
 
   K1 hex8_stiffness   csrc/hex8_stiffness.cu  replaces hex8_stiffness_pallas
   K2 stencil_matvec   csrc/stencil_matvec.cu  replaces stencil_matvec_pallas
+  K3 ell_matvec       csrc/ell_matvec.cu      replaces ell_matvec_pallas
 
 A wrapper given a CPU tensor returns the plain version. Given a CUDA tensor
 it launches the kernel (built at first use by `fem_tpu_torch.kernels_build`)
 on the current stream or raises; there is no fallback. `launches[name]` is
 incremented once per kernel launch and nowhere else.
-
-The third Pallas kernel, ell_matvec_pallas (the AMG levels' ELL SpMV), is
-not on the ported path yet (ROADMAP B.3).
 """
 
 from __future__ import annotations
@@ -35,7 +33,7 @@ HEX_OFFSETS = (
 )
 QUAD_OFFSETS = ((0, 0), (0, 1), (1, 1), (1, 0))
 
-launches = {"hex8_stiffness": 0, "stencil_matvec": 0}
+launches = {"hex8_stiffness": 0, "stencil_matvec": 0, "ell_matvec": 0}
 
 
 def reset_launches() -> None:
@@ -181,5 +179,57 @@ def stencil_matvec(k_ref, u, shape):
     with torch.cuda.device(u.device):
         _launch("stencil_matvec", fn, k_ref.data_ptr(), u.data_ptr(),
                 out.data_ptr(), nx, ny, nz,
+                torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K3: ELL sparse matrix-vector product
+# --------------------------------------------------------------------------
+
+
+def ell_matvec_plain(vals, cols, x):
+    """Plain form of K3 on the column-major (w, n) ELL layout:
+    out[i] = sum_k vals[k, i] * x[cols[k, i]]; padded slots (val 0, col 0)
+    give 0. vals: (w, n) float, cols: (w, n) int32, x: (nx,) -> (n,)."""
+    return (vals * x[cols]).sum(0)
+
+
+def ell_lanes(w: int) -> int:
+    """Threads sharing one row in K3: the largest power of two <= 32 with at
+    least 16 slots per thread (1 for rows narrower than 32 slots)."""
+    lanes = 1
+    while lanes < 32 and 32 * lanes <= w:
+        lanes *= 2
+    return lanes
+
+
+def ell_matvec(vals, cols, x):
+    """K3 wrapper: same contract as ell_matvec_plain."""
+    if x.device.type == "cpu":
+        return ell_matvec_plain(vals, cols, x)
+    _check(x.is_cuda, f"unsupported device {x.device}")
+    suffix = _float_suffix(x.dtype)
+    _check(vals.dim() == 2 and cols.shape == vals.shape,
+           f"vals and cols must be (w, n) alike, got {tuple(vals.shape)} and "
+           f"{tuple(cols.shape)}")
+    _check(x.dim() == 1, f"x must be 1-D, got {tuple(x.shape)}")
+    _check(vals.dtype == x.dtype and vals.device == x.device,
+           "vals must match x's dtype and device")
+    _check(cols.dtype == torch.int32 and cols.device == x.device,
+           "cols must be int32 on x's device")
+    for t in (vals, cols, x):
+        _check(t.is_contiguous(), "K3 inputs must be contiguous")
+    w, n = vals.shape
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    _check(w == 0 or x.shape[0] > 0, "x is empty but the table has slots")
+    from fem_tpu_torch import kernels_build
+
+    fn = getattr(kernels_build.library(), f"ell_matvec_{suffix}")
+    with torch.cuda.device(x.device):
+        _launch("ell_matvec", fn, vals.data_ptr(), cols.data_ptr(),
+                x.data_ptr(), out.data_ptr(), n, w, ell_lanes(w),
                 torch.cuda.current_stream().cuda_stream)
     return out

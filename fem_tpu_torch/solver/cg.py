@@ -13,6 +13,7 @@ well-conditioned (the 1e30 penalty would destroy CG convergence).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,7 +52,8 @@ def pcg(matvec: Callable, b, x0=None, diag=None, rtol: float = 1e-9,
     """Preconditioned CG. Preconditioner: `precond(r)` if given (e.g. a
     multigrid V-cycle), else Jacobi from `diag`, else identity. Convergence:
     ||r|| <= max(rtol * ||b||, atol) (the PETSc KSP default test with the
-    reference's rtol=1e-9, main.F90:349-351). maxiter <= 0 means 10 n."""
+    reference's rtol=1e-9, main.F90:349-351). maxiter <= 0 means 10 n. A
+    non-finite residual norm ends the iteration (it cannot recover)."""
     if maxiter <= 0:
         maxiter = 10 * b.shape[0]
     if precond is None:
@@ -80,7 +82,7 @@ def pcg(matvec: Callable, b, x0=None, diag=None, rtol: float = 1e-9,
             r = r - alpha * ap
             k += 1
             rnorm = float(torch.linalg.norm(r))  # the one sync per iteration
-            if rnorm <= tol:
+            if rnorm <= tol or not math.isfinite(rnorm):
                 break
             z = precond(r)
             rz_new = torch.dot(r, z)

@@ -16,6 +16,8 @@ port a path by giving its row a setup function.
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -24,9 +26,9 @@ import torch
 from fem_tpu_torch.config import Config
 from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.models.system import PENALTY, System
-from fem_tpu_torch.ops import structured
+from fem_tpu_torch.ops import blockstencil, operator, structured
 from fem_tpu_torch.ops.stiffness import lame
-from fem_tpu_torch.solver import cg, direct, multigrid
+from fem_tpu_torch.solver import amg, cg, direct, gmg, multigrid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +52,7 @@ PATHS = (
     ("sharded", lambda f: f.sharded, "A.9"),
     ("direct", lambda f: f.solver == "direct", None),
     ("structured_mg_cg", lambda f: f.structured, None),
-    ("unstructured_amg_or_lattice_gmg_cg", lambda f: f.precond == "amg", "A.6"),
+    ("unstructured_amg_or_lattice_gmg_cg", lambda f: f.precond == "amg", None),
     ("unstructured_jacobi_cg", lambda f: True, None),
 )
 
@@ -139,6 +141,86 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     return solve
 
 
+def _setup_unstructured(system: System, config: Config, solver: str, spec,
+                        log):
+    """Unstructured meshes at scale, the any-mesh half of MUMPS' role
+    (main.F90:354-390; fem_tpu's stepper.py:1012-1237 in float64 at every
+    size): the assembled CSR on the host picks the fine operator (a block
+    stencil when the connectivity is a lex lattice, else the fused
+    gather/scatter operator) and the preconditioner (geometric lattice MG on
+    lattices above `gmg_min` DOFs, else SA-AMG with a dense coarse inverse
+    up to 20,000 DOFs) of a masked PCG, warm-started from the last
+    increment. A GMG solve that ends non-finite or unconverged demotes the
+    run to SA-AMG and solves again."""
+    log("    AMG preconditioner (smoothed aggregation)")
+    dtype, dev = system.dtype, system.device
+    pdim, n = system.pdim, system.ndof
+    t0 = time.perf_counter()
+    A_csr = amg.assemble_csr(system)
+    t_asm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dims = blockstencil.detect(A_csr, pdim, n // pdim)
+    if dims is not None:
+        log("    Lattice topology: block-stencil fine operator")
+        bop = blockstencil.build(A_csr, pdim, dims, dtype=dtype, device=dev)
+        fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
+    else:
+        fop = operator.build(system)
+        fine = lambda v: operator.matvec(fop, v)  # noqa: E731
+    t_op = time.perf_counter() - t0
+    bc_mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    bc_mask[system.bc_dofs] = True
+    mf = bc_mask.to(dtype)
+    masked = cg.masked_operator(fine, bc_mask)
+    state = {}
+
+    def use_sa(A=None):
+        h = amg.build(system, system.bc_dofs, coarse_max=20000, A=A)
+        state.update(pc=amg.preconditioner(h, masked), gmg=False)
+        return [n] + [lv.n_coarse for lv in h.levels[:-1]]
+
+    t0 = time.perf_counter()
+    sizes = None
+    if dims is not None and n > config.gmg_min:
+        h = gmg.build_lattice(A_csr, pdim, dims, bc_dofs=system.bc_dofs,
+                              dtype=dtype, device=dev)
+        if h is not None:
+            log("    Geometric lattice-MG preconditioner")
+            state.update(pc=gmg.preconditioner(h, masked), gmg=True)
+            sizes = [int(np.prod(lv.dims)) * pdim for lv in h.levels] + [
+                h.coarse_inv.shape[0]]
+    if sizes is None:
+        sizes = use_sa(A_csr)
+    del A_csr
+    log(f"    Unstructured set-up: assemble_csr {t_asm:.2f} s, operator "
+        f"{t_op:.2f} s, hierarchy {time.perf_counter() - t0:.2f} s, level "
+        f"sizes {sizes}")
+    cap = config.maxiter or 400
+
+    def pcg(b, x0):
+        return cg.pcg(masked, b, x0=x0, precond=state["pc"],
+                      rtol=config.rtol or 1e-9, atol=config.atol,
+                      maxiter=cap)
+
+    def solve(F, bc_vals, x0):
+        ubc = torch.zeros_like(F)
+        ubc[system.bc_dofs] = bc_vals
+        b = cg.constrained_rhs(fine, F, bc_mask, ubc)
+        x0 = torch.where(bc_mask, ubc, x0)
+        res = pcg(b, x0)
+        if state["gmg"] and not (math.isfinite(res.resnorm)
+                                 and res.iters < cap):
+            log("    GMG acceptance FAILED ("
+                + ("non-finite residual" if not math.isfinite(res.resnorm)
+                   else f"{res.iters} inner iterations")
+                + ") -> SA-AMG demotion")
+            use_sa()
+            res = pcg(b, x0)
+        return res.x * (1.0 - mf) + ubc * mf, res.iters
+
+    return solve
+
+
 def _setup_jacobi(system: System, config: Config, solver: str, spec, log):
     """Matrix-free System.matvec with Jacobi-PCG, warm-started from the last
     increment (the reference never zeroes Vec_U)."""
@@ -156,6 +238,7 @@ def _setup_jacobi(system: System, config: Config, solver: str, spec, log):
 _SETUP = {
     "direct": _setup_direct,
     "structured_mg_cg": _setup_structured,
+    "unstructured_amg_or_lattice_gmg_cg": _setup_unstructured,
     "unstructured_jacobi_cg": _setup_jacobi,
 }
 

@@ -159,11 +159,18 @@ def test_import_leaves_jax_out():
     (dict(n_devices=2), "A.9"),
     (dict(checkpoint_dir="ckpt"), "A.8"),
     (dict(profile_dir="trace"), "A.8"),
-    (dict(precond="amg"), "A.6"),
 ])
 def test_config_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Config(device="cpu", **kw)
+
+
+def test_config_accepts_amg_precond():
+    c = Config(device="cpu", precond="amg", gmg_min=1)
+    assert c.resolve_precond(10) == "amg" and c.gmg_min == 1
+    assert Config(device="cpu").gmg_min == 20000
+    assert Config(device="cpu").resolve_precond(20000) == "amg"
+    assert Config(device="cpu").resolve_precond(19999) == "jacobi"
 
 
 def test_cuda_requested_without_cuda_raises():

@@ -120,9 +120,10 @@ def test_path_table_rows():
         **{**f, "solver": "direct", "structured": True})) == "direct"
     assert stepper.choose_path(stepper.Features(
         **{**f, "explicit": True, "cohesive": True})) == "explicit"
+    assert stepper.choose_path(stepper.Features(
+        **{**f, "precond": "amg"})) == "unstructured_amg_or_lattice_gmg_cg"
     for key, value, item in (("cohesive", True, "A.7"), ("creep", True, "A.8"),
-                             ("sharded", True, "A.9"),
-                             ("precond", "amg", "A.6")):
+                             ("sharded", True, "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             stepper.choose_path(stepper.Features(**{**f, key: value}))
 
@@ -131,9 +132,18 @@ def test_unported_rows_raise_from_run():
     with pytest.raises(NotImplementedError, match="A.7"):
         stepper.run(problem_mod.load(deck("cohesive_test_2.inp")),
                     Config(device="cpu"))
-    box = meshgen.hex_box_problem(2, 2, 2, jitter=0.3)  # not a lattice
-    with pytest.raises(NotImplementedError, match="A.6"):
-        stepper.run(box, Config(device="cpu", solver="cg", amg_threshold=10))
+    # a jittered box (no uniform grid) above amg_threshold takes the
+    # unstructured amg row: SA-AMG at or below gmg_min, converged
+    box = meshgen.hex_box_problem(2, 2, 2, jitter=0.3)
+    msgs = []
+    r = stepper.run(box, Config(device="cpu", solver="cg", amg_threshold=10),
+                    log=msgs.append)
+    assert r.path == "unstructured_amg_or_lattice_gmg_cg"
+    assert any("smoothed aggregation" in m for m in msgs)
+    assert not any("Geometric lattice-MG" in m for m in msgs)
+    assert r.krylov_iters and r.krylov_iters[0] > 0
+    u_dir = stepper.run(box, Config(device="cpu", solver="direct")).aggregate_u
+    close(r.aggregate_u, u_dir, rtol=1e-7)
 
 
 def test_explicit_deck_writes_zeros():

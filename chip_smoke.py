@@ -27,7 +27,27 @@ Phases, each of which exits non-zero when it fails:
      with SA-AMG, its launch counts, and the true relative residual
      recomputed with assemble_csr's matrix as a torch sparse CSR product;
  10. the same box in lex order through the block stencil and lattice GMG,
-     with the same residual check.
+     with the same residual check;
+ 11. the cohesive decks on the card, each against the same run on the CPU:
+     examples/ref/cohesive_test_2.inp through the CLI (2 steps, 1 Newton
+     iteration on the first, u_y = 0.1 at nodes 7 and 8) and
+     examples/czm_instability.inp with formulation "total" (interface gap
+     0.0999494, per-node interface force 0.0620504 of the Abaqus UEL log);
+     then the snap-back state of tests/test_snapback.py (the 8 x 4 strip's
+     interface opened past the traction peak, an indefinite tangent)
+     through the matrix-free Newton, which must take the GMRES fallback,
+     converge, and agree with the dense Newton and with the CPU run;
+ 12. fem_tpu's cohesive benchmark strip at full size (bench.py:650-659:
+     360 x 72 x 2 quads, 360 cohesive elements, 105,412 DOFs, pulled to
+     1.5 delta_n in 2 steps) through the matrix-free Newton-Krylov with the
+     block stencil and lattice GMG: Newton and inner iterations, GMRES
+     fallbacks, set-up and the inner / line-search / residual wall split, and
+     the final Newton residual recomputed from assemble_csr's matrix and
+     System.coh_force;
+ 13. the same strip node-permuted, through the fused operator and SA-AMG
+     (K3 in its transfers), its u mapped back and held against phase 12's;
+     then K3 against its plain version on every P, R and ELL mid-level
+     table of that run's hierarchy (rebuilt by newton.matfree_operators).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero before printing any result.
@@ -78,11 +98,13 @@ def main():
     from fem_tpu_torch.cli import main as cli_main
     from fem_tpu_torch.config import Config
     from fem_tpu_torch.io import meshgen, vtk
+    from fem_tpu_torch.models import problem as problem_mod
     from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import cohesive as coh_ops
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import operator, structured
     from fem_tpu_torch.ops.stiffness import lame
-    from fem_tpu_torch.solver import amg, cg, stepper
+    from fem_tpu_torch.solver import amg, cg, newton, stepper
 
     # float32 products in the plain versions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -292,6 +314,24 @@ def main():
                 out = (err, ms, plain_ms)
         return out
 
+    def k3_hierarchy(hier, label):
+        """k3_case on every P, R and ELL mid-level table of an SA-AMG
+        hierarchy; returns level 0's P result."""
+        first = None
+        for i, lv in enumerate(hier.levels[:-1]):
+            n_f = lv.dinv.shape[0]
+            tables = [("P", lv.P, lv.n_coarse), ("R", lv.R, n_f)]
+            if lv.op is not None:
+                tables.append(("A (ELL mid level)", lv.op, n_f))
+            for name, e, nx in tables:
+                x = torch.as_tensor(rng.standard_normal(nx), device=dev)
+                res_k3 = k3_case(e.vals, e.cols, x,
+                                 f"{label} level {i} {name}")
+                first = first or res_k3
+        check(first is not None,
+              f"the {label} hierarchy has no transfer level")
+        return first
+
     rng = np.random.default_rng(0)
     n_r = 200000
     k3_case(torch.as_tensor(rng.standard_normal((81, n_r)), device=dev),
@@ -346,18 +386,7 @@ def main():
           f"{t_sys:.2f} s, assemble_csr {t_asm:.2f} s ({A_csr.nnz} nonzeros), "
           f"amg.build {t_amg:.2f} s (level sizes {sizes}), fused operator "
           f"{t_op:.2f} s", flush=True)
-    k3_real = None
-    for i, lv in enumerate(hier.levels[:-1]):
-        n_f = lv.dinv.shape[0]
-        tables = [("P", lv.P, lv.n_coarse), ("R", lv.R, n_f)]
-        if lv.op is not None:
-            tables.append(("A (ELL mid level)", lv.op, n_f))
-        for name, e, nx in tables:
-            x = torch.as_tensor(rng.standard_normal(nx), device=dev)
-            res_k3 = k3_case(e.vals, e.cols, x, f"level {i} {name}")
-            if i == 0 and name == "P":
-                k3_real = res_k3
-    check(k3_real is not None, "the 55^3 hierarchy has no transfer level")
+    k3_real = k3_hierarchy(hier, "55^3")
     del hier
 
     ck.reset_launches()
@@ -418,8 +447,196 @@ def main():
     check(true_rel <= 1e-8, f"lex 55^3 true rel residual {true_rel}")
     check(launches_gmg["hex8_stiffness"] > 0, "the GMG run launched no K1")
 
+    del system, u
+
+    # 11. the cohesive decks on the card, against the CPU
+    coh_deck = "examples/ref/cohesive_test_2.inp"
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cpu"):
+            rc = cli_main(["-f", coh_deck, "--device", device, "-q",
+                           "-o", f"{tmp}/{device}_"])
+            check(rc == 0, f"CLI on {coh_deck} --device {device} exited {rc}")
+            fields[device] = vtk.read_fields(
+                f"{tmp}/{device}_0_output_000000.vtk")
+    disp = fields["cuda"][2]
+    check(np.allclose(disp[[6, 7], 1], 0.1, atol=1e-10),
+          f"cohesive_test_2 u_y at nodes 7, 8: {disp[[6, 7], 1]}")
+    for k, name in ((1, "stress"), (2, "u")):
+        d = np.abs(fields["cuda"][k] - fields["cpu"][k]).max()
+        check(d <= 1e-6, f"cohesive_test_2 VTK {name} cuda vs cpu: {d}")
+    coh_p = problem_mod.load(coh_deck)
+    r_coh = stepper.run(coh_p, Config(device="cuda"))
+    check(r_coh.path == "cohesive_newton" and r_coh.nsteps == 2
+          and r_coh.newton_iters[0] == 1,
+          f"cohesive_test_2: path {r_coh.path}, Newton {r_coh.newton_iters}")
+    print(f"cohesive_test_2 on cuda via the CLI: 2 steps, Newton iterations "
+          f"{r_coh.newton_iters}, u_y 0.1 at nodes 7, 8, VTK equal to the "
+          f"CPU run's (u and stress to 1e-6)", flush=True)
+    czm = problem_mod.load("examples/czm_instability.inp")
+    czm_cfg = dict(solver="direct", formulation="total", newton_maxit=100)
+    r_czm = {d: stepper.run(czm, Config(device=d, **czm_cfg))
+             for d in ("cuda", "cpu")}
+    u_czm = r_czm["cuda"].aggregate_u.reshape(8, 2)
+    gaps = [u_czm[1, 1] - u_czm[6, 1], u_czm[4, 1] - u_czm[7, 1]]
+    s_czm = System(czm, torch.float64, device=dev)
+    fy = s_czm.coh_force(torch.as_tensor(r_czm["cuda"].aggregate_u,
+                                         device=dev)).cpu().numpy()[1::2]
+    pair = (fy[6] + fy[7]) / 2.0
+    abaqus = 0.0489376440 + 0.0131128022  # CZM_for_instability_test.log
+    d_czm = np.abs(r_czm["cuda"].aggregate_u - r_czm["cpu"].aggregate_u).max()
+    print(f"czm_instability total on cuda: Newton iterations "
+          f"{r_czm['cuda'].newton_iters}, gaps {gaps[0]:.7f} "
+          f"{gaps[1]:.7f}, per-node interface force {pair:.7f} (Abaqus "
+          f"{abaqus:.7f}), max |u_cuda - u_cpu| {d_czm:.3e}", flush=True)
+    check(all(r_czm["cuda"].newton_converged), "czm: Newton did not converge")
+    check(np.allclose(gaps, 0.0999494, rtol=1e-4), f"czm gaps {gaps}")
+    check(abs(pair / abaqus - 1.0) <= 2e-3, f"czm interface force {pair}")
+    check(d_czm <= 1e-9 * np.abs(r_czm["cpu"].aggregate_u).max(),
+          f"czm cuda vs cpu: {d_czm}")
+
+    # the GMRES fallback on the card: tests/test_snapback.py's 8 x 4 strip
+    # with its interface rigidly opened to 2 delta_n, past the traction
+    # peak; at zeta 0.02 the tangent is indefinite and plain CG fails
+    snap = meshgen.cohesive_interface_problem(
+        8, 4, open_disp=0.004, t=1.0, dt=0.25, E=3640.0, nu=0.3,
+        coh_props=(100.0, 0.001, 0.001, 1.0, 0.0, 0.02))
+    snap_du = {}
+    for d in ("cuda", "cpu"):
+        s_snap = System(snap, torch.float64, device=d)
+        agg = torch.zeros(s_snap.ndof, dtype=torch.float64, device=d)
+        agg[torch.arange(45, 90, device=d) * 2 + 1] = 0.002
+        du0 = torch.zeros_like(agg)
+        F = s_snap.rhs(0.0)
+        r_mf = newton.solve_step_matfree(
+            s_snap, Config(device=d, solver="cg"), agg, du0, F)
+        if d == "cuda":
+            r_cg = newton.solve_step_matfree(
+                s_snap, Config(device=d, solver="cg", inner_krylov="cg"),
+                agg, du0, F)
+            r_dense = newton.solve_step(
+                s_snap, Config(device=d, solver="direct"), agg, du0, F,
+                bc_mode="eliminate")
+            print(f"snap-back 8 x 4 on cuda: matrix-free Newton iterations "
+                  f"{r_mf.iters}, converged {r_mf.converged}, GMRES "
+                  f"fallbacks {r_mf.gmres_fallbacks}, inner iterations "
+                  f"{r_mf.inner_iters}; plain CG converged {r_cg.converged}"
+                  f"; dense Newton iterations {r_dense.iters}", flush=True)
+            check(r_mf.converged and r_mf.gmres_fallbacks >= 1,
+                  "snap-back: the matrix-free Newton did not converge "
+                  "through the GMRES fallback")
+            check(r_dense.converged, "snap-back: the dense Newton failed")
+            snap_du["dense"] = r_dense.du.cpu()
+        snap_du[d] = r_mf.du.cpu()
+    nd = float(torch.linalg.norm(snap_du["dense"]))
+    d_dense = float(torch.linalg.norm(snap_du["cuda"] - snap_du["dense"])) / nd
+    d_cpu = float(torch.linalg.norm(snap_du["cuda"] - snap_du["cpu"])) / nd
+    print(f"snap-back: |du - du_dense| / |du_dense| {d_dense:.3e}, "
+          f"|du_cuda - du_cpu| / |du_dense| {d_cpu:.3e} (tol 1e-5)",
+          flush=True)
+    check(d_dense <= 1e-5, f"snap-back cuda vs dense: {d_dense}")
+    check(d_cpu <= 1e-5, f"snap-back cuda vs cpu: {d_cpu}")
+
+    # 12. fem_tpu's cohesive benchmark strip, matrix-free on the card
+    strip = meshgen.cohesive_interface_problem(
+        360, 72, lx=5.0, ly_half=1.0, E=3640.0, open_disp=0.015, t=1.0,
+        dt=0.5, coh_props=(100.0, 0.01, 0.01, 1.0, 0.0, 0.0))
+    check((strip.nnds, strip.ndof, strip.blocks["coh"].ne, strip.nsteps)
+          == (52706, 105412, 360, 2), "the cohesive strip has the wrong size")
+
+    def run_strip(problem, label):
+        ck.reset_launches()
+        msgs = []
+        res, wall = timed(lambda: stepper.run(
+            problem, Config(device="cuda", solver="cg"), log=msgs.append))
+        launches_run = dict(ck.launches)
+        for m in msgs:
+            if "Interval" not in m:
+                print(f"  stepper: {m.strip()}")
+        print(f"{label} ({problem.ndof} DOFs, float64): Newton iterations "
+              f"{res.newton_iters}, converged {res.newton_converged}, inner "
+              f"iterations {res.krylov_iters}, GMRES fallbacks "
+              f"{res.gmres_fallbacks}, stepper.run wall {wall:.2f} s, "
+              f"launches {launches_run}", flush=True)
+        check(res.path == "cohesive_newton", f"{label} took path {res.path}")
+        check(all(res.newton_converged), f"{label}: Newton did not converge")
+        u = res.aggregate_u.reshape(-1, 2)
+        top = problem.coords[:, 1] == 2.0
+        check(np.abs(u[top, 1] - 0.015).max() <= 1e-12,
+              f"{label}: top edge u_y is not 0.015")
+        check(np.isfinite(u).all() and np.isfinite(res.aggregate_stress).all()
+              and res.aggregate_stress.shape == (problem.nnds, 3),
+              f"{label}: u or stress not finite / wrong shape")
+        return res, msgs, launches_run
+
+    res12, msgs12, _ = run_strip(strip, "cohesive strip, lattice GMG")
+    check(any("lattice GMG" in m for m in msgs12),
+          "the lex strip did not take the block stencil and lattice GMG")
+    # the last step's Newton residual, recomputed from the assembled K_el
+    # (torch sparse CSR on the card) and System.coh_force, against the
+    # first residual of that step (at its warm start, the first increment)
+    s_strip = System(strip, torch.float64, device=dev)
+    A_csr = amg.assemble_csr(s_strip)
+    K = torch.sparse_csr_tensor(
+        torch.as_tensor(A_csr.indptr, dtype=torch.int64, device=dev),
+        torch.as_tensor(A_csr.indices, dtype=torch.int64, device=dev),
+        torch.as_tensor(A_csr.data, dtype=torch.float64, device=dev),
+        size=A_csr.shape, check_invariants=True)
+    du_last = torch.as_tensor(res12.du, device=dev)
+    agg_prev = torch.as_tensor(res12.aggregate_u, device=dev) - du_last
+    mask = torch.zeros(strip.ndof, dtype=torch.bool, device=dev)
+    mask[s_strip.bc_dofs] = True
+    ubc = torch.zeros_like(du_last)
+    ubc[s_strip.bc_dofs] = s_strip.bc_step_vals()
+    F_last = s_strip.rhs(strip.dt)
+
+    def newton_residual(du):
+        r = ((K @ du.unsqueeze(1)).squeeze(1) - F_last
+             - s_strip.coh_force(agg_prev + du))
+        return float(torch.linalg.norm(torch.where(mask, du - ubc, r)))
+
+    r_first = newton_residual(torch.where(mask, ubc, agg_prev))
+    r_last = newton_residual(du_last)
+    print(f"cohesive strip: last step's Newton residual recomputed from the "
+          f"assembled CSR and coh_force {r_last:.3e}, first {r_first:.3e}, "
+          f"ratio {r_last / r_first:.3e}", flush=True)
+    check(r_last <= 1e-6 * r_first, "cohesive strip: recomputed residual")
+    gap_n = coh_ops.gaps(s_strip.coh["ecoords"],
+                         torch.as_tensor(res12.aggregate_u, device=dev)[
+                             s_strip.coh["edofs"]], s_strip.dt)[0] / 0.01
+    print(f"cohesive strip: interface normal gap {float(gap_n.min()):.4f} "
+          f"to {float(gap_n.max()):.4f} delta_n (traction peak at 1)",
+          flush=True)
+    del K, A_csr, s_strip
+
+    # 13. the node-permuted strip: fused operator and SA-AMG with K3
+    pstrip = meshgen.permute_nodes(strip, seed=0)
+    perm = np.random.default_rng(0).permutation(strip.nnds)
+    check(np.array_equal(pstrip.coords, strip.coords[perm]),
+          "permute_nodes did not use the expected permutation")
+    res13, msgs13, launches_coh = run_strip(pstrip,
+                                            "permuted cohesive strip, SA-AMG")
+    check(any("SA-AMG" in m for m in msgs13),
+          "the permuted strip did not take the fused operator and SA-AMG")
+    check(launches_coh["ell_matvec"] > 0, "the SA-AMG Newton launched no K3")
+    u_back = np.empty((strip.nnds, 2))
+    u_back[perm] = res13.aggregate_u.reshape(-1, 2)
+    rel = float(np.abs(u_back.reshape(-1) - res12.aggregate_u).max()
+                / np.abs(res12.aggregate_u).max())
+    print(f"permuted strip vs lex strip: max |du| / max |u| {rel:.3e}",
+          flush=True)
+    check(rel <= 1e-6, f"permuted strip u differs from the lex strip's: {rel}")
+    # K3 on the tables that run used: the same hierarchy, rebuilt
+    ops = newton.matfree_operators(System(pstrip, torch.float64, device=dev),
+                                   Config(device="cuda", solver="cg"))
+    check(ops.kind == "amg", f"the permuted strip's hierarchy is {ops.kind}")
+    print(f"permuted strip hierarchy: level sizes {ops.mg.sizes}", flush=True)
+    k3_hierarchy(ops.mg.hier, "strip")
+    del ops
+
     summary["ell_matvec"] = k3_real
-    launches["ell_matvec"] = launches_amg["ell_matvec"]
+    launches["ell_matvec"] = (launches_amg["ell_matvec"]
+                              + launches_coh["ell_matvec"])
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),

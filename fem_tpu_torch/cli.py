@@ -1,6 +1,6 @@
 """Command-line driver: `python -m fem_tpu_torch -f <deck.inp> [--device cpu]`.
 
-Port of `fem_tpu.cli` for the linear path. Mirrors the reference CLI
+Port of `fem_tpu.cli` (single device). Mirrors the reference CLI
 `defmod -f <file>` (main.F90:31-33) and writes `0_output_000000.vtk` in the
 working directory like the reference's rank-0 writer (m_io.F90:496). Runs on
 the CUDA device by default; `--device cpu` asks for the CPU.
@@ -33,6 +33,11 @@ def main(argv=None) -> int:
     ap.add_argument("--plane-stress", action="store_true",
                     help="treat 2D elements as plane stress (the reference "
                          "is plane strain only)")
+    ap.add_argument("--quirks", action="store_true",
+                    help="replicate reference cohesive defects bit-for-bit")
+    ap.add_argument("--formulation", default="auto",
+                    choices=["reference", "standard", "total", "auto"],
+                    help="cohesive residual (default: auto)")
     ap.add_argument("-o", "--output-prefix", default="",
                     help="directory/prefix for VTK output")
     ap.add_argument("-q", "--quiet", action="store_true")
@@ -67,6 +72,8 @@ def main(argv=None) -> int:
         solver=args.solver,
         bc_mode=args.bc_mode,
         plane_stress=args.plane_stress,
+        quirks=args.quirks,
+        formulation=args.formulation,
     )
     log("Forming [K] ...")
     t0 = time.perf_counter()

@@ -42,6 +42,23 @@ class Config:
         GMG on the amg path; at or below it they take SA-AMG, whose coarse
         solve is then exact (the counterpart of fem_tpu's FEM_TPU_GMG_MIN).
       plane_stress: treat 2D elements as plane stress (beyond-reference).
+      newton_rtol / newton_atol / newton_stol / newton_maxit: SNES-equivalent
+        Newton controls of the cohesive path (PETSc defaults: rtol 1e-8
+        relative to each step's first residual, atol 1e-50, stol 1e-8,
+        max 50 iterations).
+      formulation: cohesive residual. "reference" reproduces the shipped
+        R(du) = J(du) du - F_ext - F_coh(aggregate_u + du) (m_global.F90:226);
+        "standard" is the textbook incremental R(du) = K_el du - F_ext -
+        F_coh(aggregate_u + du); "total" solves the true equilibrium
+        K_el u = F_ext_cumulative(t) + F_coh(u) at each step end (what matches
+        the Abaqus UEL cross-validation). "auto": "reference" under penalty
+        BCs (deck parity), "standard" otherwise.
+      forcing: inner tolerance of the matrix-free Newton-Krylov solve: "ew"
+        (Eisenstat-Walker choice 2) or "fixed" (1e-6).
+      inner_krylov: "auto" (CG, with a GMRES fallback when the cohesive
+        tangent turns indefinite) or "cg" (no fallback).
+      quirks: reproduce two defects of the reference's cohesive element
+        (see ops/cohesive.py). Default False: corrected physics.
     """
 
     device: str = "cuda"
@@ -56,6 +73,14 @@ class Config:
     gmg_min: int = 20000
     plane_stress: bool = False
     direct_threshold: int = 4096
+    newton_rtol: float = 1e-8
+    newton_atol: float = 1e-50
+    newton_stol: float = 1e-8
+    newton_maxit: int = 50
+    formulation: str = "auto"
+    forcing: str = "ew"
+    inner_krylov: str = "auto"
+    quirks: bool = False
     # Not ported yet: setting any of these raises (see __post_init__).
     viscoelastic: bool = False
     n_devices: Optional[int] = None
@@ -79,6 +104,13 @@ class Config:
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
         if self.dtype not in ("float64", "float32"):
             raise ValueError(f"dtype must be float64 or float32, got {self.dtype!r}")
+        for name, allowed in (
+                ("formulation", ("auto", "reference", "standard", "total")),
+                ("forcing", ("ew", "fixed")),
+                ("inner_krylov", ("auto", "cg"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -96,6 +128,11 @@ class Config:
         if self.bc_mode != "auto":
             return self.bc_mode
         return "penalty" if solver == "direct" else "eliminate"
+
+    def resolve_formulation(self, bc_mode: str) -> str:
+        if self.formulation != "auto":
+            return self.formulation
+        return "reference" if bc_mode == "penalty" else "standard"
 
     def resolve_precond(self, ndof: int) -> str:
         if self.precond != "auto":

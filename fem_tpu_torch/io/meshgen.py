@@ -4,9 +4,11 @@ Numpy copy of the builders of `fem_tpu.io.meshgen` that the port's tests and
 its smoke run use. `quad_strip_deck` ports the reference's make_example.F90
 tool (an N x M structured quad strip with 2 pinned corner nodes and 2 end
 forces, written in the legacy 7-count deck format, make_example.F90:33-140).
-The builders below it construct `Problem` objects directly in numpy — no text
-round-trip — for large-scale tests and runs (e.g. the hex8 cantilever box);
-`permute_nodes` scrambles a Problem's node numbering.
+`cohesive_interface_deck` writes the two-block cohesive interface strip as
+canonical deck text. The functions below construct `Problem` objects directly
+in numpy — no text round-trip — for large-scale tests and runs (the hex8
+cantilever box, the cohesive interface strip); `permute_nodes` scrambles a
+Problem's node numbering.
 """
 
 from __future__ import annotations
@@ -53,6 +55,58 @@ def quad_strip_deck(x_nels: int = 10, y_nels: int = 1) -> str:
     f1, f2 = x_nnds, x_nnds * y_nnds
     lines.append(f"{f1} -100000000000.000000 0.000000 0.000000 0.010000")
     lines.append(f"{f2} -100000000000.000000 0.000000 0.000000 0.010000")
+    return "\n".join(lines) + "\n"
+
+
+def cohesive_interface_deck(
+    nx: int = 8,
+    ny_half: int = 4,
+    open_disp: float = 0.004,
+    t: float = 1.0,
+    dt: float = 0.25,
+    E: float = 3640.0,
+    nu: float = 0.3,
+    coh_props: Tuple[float, ...] = (100.0, 0.01, 0.01, 1.0, 0.0, 0.0),
+) -> str:
+    """Canonical-format .inp deck for the cohesive interface problem (same
+    topology as cohesive_interface_problem) — two quad blocks glued by nx
+    cohesive elements, bottom clamped, top edge ramped open."""
+    p = cohesive_interface_problem(
+        nx, ny_half, E=E, nu=nu, t=t, dt=dt, open_disp=open_disp,
+        coh_props=coh_props,
+    )
+    qua = p.blocks["qua"]
+    coh = p.blocks["coh"]
+    nbcs_nodes = {}
+    for d, v in zip(p.bc_dofs.tolist(), p.bc_vals.tolist()):
+        node, comp = divmod(d, 2)
+        flags, vals = nbcs_nodes.setdefault(node, ([1, 1], [0.0, 0.0]))
+        flags[comp] = 0
+        vals[comp] = v
+    lines = [
+        "implicit 2 20",
+        f"{p.nels} {p.nnds} 1 1 0 0 0 {len(nbcs_nodes)}",
+        f"{t} {dt} 1 1",
+        "",
+    ]
+    for i in range(qua.ne):
+        n = qua.conn[i] + 1
+        lines.append(f"qua {n[0]} {n[1]} {n[2]} {n[3]} 1 0")
+    for i in range(coh.ne):
+        n = coh.conn[i] + 1
+        lines.append(f"coh {n[0]} {n[1]} {n[2]} {n[3]} 0 1")
+    lines.append("")
+    for xy in p.coords:
+        lines.append(f"{xy[0]:.17g} {xy[1]:.17g}")
+    lines.append("")
+    lines.append(f"{E} {nu} 1.0E18 1.0 3000.0")
+    lines.append("1 " + " ".join(str(v) for v in coh_props))
+    lines.append("")
+    for node in sorted(nbcs_nodes):
+        flags, vals = nbcs_nodes[node]
+        lines.append(
+            f"{node + 1} {flags[0]} {flags[1]} {vals[0]} {vals[1]}"
+        )
     return "\n".join(lines) + "\n"
 
 
@@ -125,6 +179,102 @@ def quad_grid_problem(
         force_vec=force_vec,
         force_t1=force_t1,
         force_t2=force_t2,
+        trac_dofs=np.zeros((0, 2, 2), dtype=np.int32),
+        trac_nodal_vec=np.zeros((0, 2)),
+        trac_t1=np.zeros(0),
+        trac_t2=np.zeros(0),
+    )
+
+
+def cohesive_interface_problem(
+    nx: int,
+    ny_half: int,
+    lx: float = 1.0,
+    ly_half: float = 1.0,
+    E: float = 3640.0,
+    nu: float = 0.3,
+    t: float = 1.0,
+    dt: float = 0.1,
+    open_disp: float = 0.02,
+    coh_props: Tuple[float, ...] = (100.0, 0.01, 0.01, 1.0, 0.0, 0.0),
+) -> Problem:
+    """Two quad blocks glued by a horizontal cohesive interface.
+
+    The scaled-up analogue of the shipped cohesive decks: bottom block
+    clamped at y=0, top edge ramped up by `open_disp`, nx cohesive elements
+    with duplicated interface nodes. Cohesive node ordering is the CCW-quad
+    convention of the reference/Abaqus UEL: (bottom-left, bottom-right,
+    top-right, top-left)."""
+    nnx = nx + 1
+    n_block = nnx * (ny_half + 1)
+    # bottom block nodes: y in [0, ly_half]; top block: its own full grid
+    bot = _grid_nodes_2d(nx, ny_half, lx, ly_half)
+    top = _grid_nodes_2d(nx, ny_half, lx, ly_half)
+    top[:, 1] += ly_half
+    coords = np.vstack([bot, top])
+
+    def block_conn(offset):
+        i, j = np.meshgrid(np.arange(ny_half), np.arange(nx), indexing="ij")
+        n1 = (j + i * nnx).reshape(-1) + offset
+        return np.stack([n1, n1 + 1, n1 + 1 + nnx, n1 + nnx], axis=1)
+
+    qconn = np.vstack([block_conn(0), block_conn(n_block)]).astype(np.int32)
+    nq = qconn.shape[0]
+    # interface: bottom block's top row / top block's bottom row
+    b_row = np.arange(nnx) + ny_half * nnx
+    t_row = np.arange(nnx) + n_block
+    cconn = np.stack(
+        [b_row[:-1], b_row[1:], t_row[1:], t_row[:-1]], axis=1
+    ).astype(np.int32)
+    nc = cconn.shape[0]
+    blocks = {
+        "qua": Block(
+            eltype="qua",
+            conn=qconn,
+            mat=np.zeros(nq, dtype=np.int32),
+            nlmat=np.full(nq, -1, dtype=np.int32),
+            eids=np.arange(nq, dtype=np.int32),
+        ),
+        "coh": Block(
+            eltype="coh",
+            conn=cconn,
+            mat=np.full(nc, -1, dtype=np.int32),
+            nlmat=np.zeros(nc, dtype=np.int32),
+            eids=np.arange(nq, nq + nc, dtype=np.int32),
+        ),
+    }
+    bottom_nodes = np.nonzero(coords[:, 1] == 0.0)[0]
+    top_nodes = np.arange(n_block + ny_half * nnx, 2 * n_block)
+    bc_dofs = np.concatenate(
+        [
+            (bottom_nodes[:, None] * 2 + np.arange(2)[None, :]).reshape(-1),
+            top_nodes * 2 + 1,
+            top_nodes * 2,  # pin x on the pulled edge too
+        ]
+    ).astype(np.int32)
+    bc_vals = np.concatenate(
+        [
+            np.zeros(bottom_nodes.shape[0] * 2),
+            np.full(top_nodes.shape[0], open_disp),
+            np.zeros(top_nodes.shape[0]),
+        ]
+    )
+    return Problem(
+        stype="implicit",
+        pdim=2,
+        t=t,
+        dt=dt,
+        coords=coords,
+        blocks=blocks,
+        mats=np.array([[E, nu, 0.0, 1.0, 0.0]]),
+        coh_laws=np.array([1], dtype=np.int32),
+        coh_props=np.array([coh_props]),
+        bc_dofs=bc_dofs,
+        bc_vals=bc_vals,
+        force_dofs=np.zeros((0, 2), dtype=np.int32),
+        force_vec=np.zeros((0, 2)),
+        force_t1=np.zeros(0),
+        force_t2=np.zeros(0),
         trac_dofs=np.zeros((0, 2, 2), dtype=np.int32),
         trac_nodal_vec=np.zeros((0, 2)),
         trac_t1=np.zeros(0),

@@ -10,11 +10,14 @@ A System precomputes, per continuum element type block:
     m_global.F90:250-253]
   - interleaved dof index arrays  (ne, ndof_e)
 and lazily the element stiffness (ne, ndof_e, ndof_e) and D matrices.
-It exposes dense_K() / matvec(u) / diag(), rhs(t_init), bc_step_vals() and
-stress_increment(du).
+It exposes dense_K() / matvec(u) / diag(), rhs(t_init) / rhs_cumulative(t),
+bc_step_vals() / bc_total_vals(t) and stress_increment(du).
 
-Cohesive blocks take no part in the elastic operator or stress recovery (as
-in fem_tpu); their own terms are not ported yet (ROADMAP A.7).
+The cohesive block, when the deck has one, is kept apart in `self.coh`
+(element coordinates, dofs and Xu-Needleman props) and takes no part in the
+elastic operator or stress recovery (as in fem_tpu). Its terms are
+coh_force(u), coh_stiffness_dense(u), coh_matvec(u, v) and coh_diag(u)
+(applyTract_1 / applyStiff_1).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from fem_tpu_torch.config import resolve_device
 from fem_tpu_torch.models.problem import Problem
+from fem_tpu_torch.ops import cohesive as coh_ops
 from fem_tpu_torch.ops import dmat as dmat_ops
 from fem_tpu_torch.ops import stiffness as stiff_ops
 
@@ -61,8 +65,16 @@ class System:
             mats[:, 1] = nu / (1.0 + nu)
 
         self.blocks: Dict[str, dict] = {}
+        self.coh = None
         for name, b in p.blocks.items():
             if name == "coh":
+                conn = self._t(b.conn, torch.int64)
+                # props with a zero row appended so nlmat == -1 indexes zeros
+                props = np.vstack([np.asarray(p.coh_props).reshape(-1, 6),
+                                   np.zeros((1, 6))])[b.nlmat]
+                self.coh = dict(ecoords=self._t(p.coords[b.conn]),
+                                edofs=stiff_ops.element_dofs(b.et, conn),
+                                props=self._t(props))
                 continue
             et = b.et
             conn = self._t(b.conn, torch.int64)
@@ -146,15 +158,17 @@ class System:
 
     # ---------------- loads ----------------
 
-    def rhs(self, t_init):
+    def rhs(self, t_init, t_end=None):
         """Time-windowed external load vector (FormRHS, m_global.F90:373-436).
 
-        Each step applies the fraction overlap([t_init, t_init+dt], [t1,t2])
-        / (t2-t1) of every load (m_global.F90:400-426). BC forcing is NOT
-        included here; solvers apply it per bc_mode.
+        Each step applies the fraction overlap([t_init, t_end], [t1,t2])
+        / (t2-t1) of every load (m_global.F90:400-426), t_end = t_init + dt
+        by default. BC forcing is NOT included here; solvers apply it per
+        bc_mode.
         """
         t_init = torch.as_tensor(t_init, dtype=self.dtype, device=self.device)
-        t_end = t_init + self.dt
+        t_end = (t_init + self.dt if t_end is None else torch.as_tensor(
+            t_end, dtype=self.dtype, device=self.device))
         F = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
         if self.force_dofs.shape[0]:
             frac = _window_fraction(t_init, t_end, self.force_t1, self.force_t2)
@@ -167,14 +181,67 @@ class System:
             F.index_add_(0, self.trac_dofs.reshape(-1), contrib.reshape(-1))
         return F
 
+    def rhs_cumulative(self, t_end):
+        """Total external load applied up to t_end: the fraction
+        overlap([0, t_end], [t1, t2]) / (t2 - t1) of every load (the per-step
+        rhs() fractions sum to exactly this). The total-equilibrium
+        formulation's load."""
+        return self.rhs(0.0, t_end=t_end)
+
     def bc_step_vals(self):
         """Per-step prescribed displacement: bcval * dt / t — the linear ramp
         (EnforceBCForce, m_global.F90:451)."""
         return self.bc_vals * (self.dt / self.t_total)
 
-    def coh_force(self, u_total):
-        raise NotImplementedError(
-            "cohesive element terms are not ported yet (ROADMAP A.7)")
+    def bc_total_vals(self, t_end):
+        """Total prescribed displacement at t_end under the linear ramp."""
+        return self.bc_vals * (float(t_end) / self.t_total)
+
+    # ---------------- cohesive ----------------
+
+    def coh_ke(self, u_total, quirks: bool = False):
+        """Cohesive element tangents (ne, 8, 8) at the state u_total."""
+        e = self.coh
+        return coh_ops.element_stiffness(e["ecoords"], e["props"],
+                                         u_total[e["edofs"]], self.dt, quirks)
+
+    def _coh_scatter(self, fe):
+        """Scatter-add cohesive element vectors (ne, 8) onto the dofs."""
+        out = torch.zeros(self.ndof, dtype=fe.dtype, device=fe.device)
+        return out.index_add_(0, self.coh["edofs"].reshape(-1), fe.reshape(-1))
+
+    def coh_force(self, u_total, quirks: bool = False):
+        """Global cohesive force F_coh(u_total) scattered to dofs
+        (CalcResidual's applyTract_1 + ApplyNodalForce loop,
+        m_global.F90:188-206)."""
+        e = self.coh
+        return self._coh_scatter(coh_ops.element_force(
+            e["ecoords"], e["props"], u_total[e["edofs"]], self.dt, quirks))
+
+    def coh_stiffness_dense(self, u_total, quirks: bool = False):
+        """Dense cohesive tangent (CalcJacobian's applyStiff_1 scatter,
+        m_global.F90:130-150)."""
+        edofs = self.coh["edofs"]
+        K = torch.zeros((self.ndof, self.ndof), dtype=u_total.dtype,
+                        device=u_total.device)
+        K.index_put_((edofs[:, :, None], edofs[:, None, :]),
+                     self.coh_ke(u_total, quirks), accumulate=True)
+        return K
+
+    def coh_apply(self, ke, v):
+        """Cohesive tangent times v from element tangents ke (coh_ke)."""
+        return self._coh_scatter(torch.einsum(
+            "eab,eb->ea", ke, v[self.coh["edofs"]]))
+
+    def coh_matvec(self, u_total, v, quirks: bool = False):
+        """Matrix-free cohesive tangent at u_total times v."""
+        return self.coh_apply(self.coh_ke(u_total, quirks), v)
+
+    def coh_diag(self, u_total, quirks: bool = False):
+        """Diagonal of the cohesive tangent (the Jacobi preconditioner's
+        cohesive part)."""
+        return self._coh_scatter(torch.diagonal(self.coh_ke(u_total, quirks),
+                                                dim1=1, dim2=2))
 
     # ---------------- stress ----------------
 

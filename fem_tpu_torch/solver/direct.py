@@ -5,7 +5,8 @@ distributed sparse direct LU (MUMPS via PETSc PCLU, main.F90:354-390). For
 the small shipped examples a dense LU with partial pivoting
 (torch.linalg.lu_factor) on the tensor's own device, in its own dtype
 (float64 on the H100 too), plays that role; large problems take the
-matrix-free Krylov path (solver/cg.py).
+matrix-free Krylov path (solver/cg.py). `robust_solve` is the dense Newton
+step's solve with MUMPS-style null-pivot handling.
 """
 
 from __future__ import annotations
@@ -81,3 +82,35 @@ def eliminate_bcs(K, F, bc_dofs, bc_step_vals):
     K[bc_dofs, bc_dofs] = 1.0
     F = torch.where(mask, ubc, F)
     return K, F
+
+
+def robust_solve(J, rhs, ref=None):
+    """Dense solve with null-pivot regularization, on J's own device.
+
+    The reference relies on MUMPS null-pivot detection (icntl(24)=1 with
+    cntl(3)=1e-6, main.F90:365-371) so that fully separated cohesive
+    interfaces, whose dofs keep ~zero stiffness, still factorize. Here dofs
+    whose row of J is numerically null (max |J_ij| <= 1e-12 ref) are pinned:
+    unit diagonal, zero rhs, no correction. If the LU still meets an exactly
+    zero pivot (`info` > 0) or gives a non-finite x, the minimum-norm
+    solution comes from the SVD pseudo-inverse instead.
+
+    `ref` is the PHYSICAL stiffness scale, max |K_el|. Callers with penalty
+    BCs must pass it: the 1e30 penalty diagonal would otherwise set the scale
+    and flag every physical row as null (MUMPS equilibrates before it detects
+    null pivots, so its scale never sees the penalty).
+    """
+    row_scale = J.abs().amax(dim=1)
+    if ref is None:
+        ref = row_scale.max()
+    null = row_scale <= 1e-12 * ref
+    if bool(null.any()):
+        J = torch.where(null[:, None] | null[None, :], torch.zeros_like(J), J)
+        J = J + torch.diag(null.to(J.dtype))
+        rhs = torch.where(null, torch.zeros_like(rhs), rhs)
+    lu, piv, info = torch.linalg.lu_factor_ex(J)
+    if int(info) == 0:
+        x = torch.linalg.lu_solve(lu, piv, rhs[:, None])[:, 0]
+        if bool(torch.isfinite(x).all()):
+            return x
+    return torch.linalg.pinv(J) @ rhs

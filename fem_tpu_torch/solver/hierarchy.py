@@ -1,0 +1,72 @@
+"""The fine operator and the preconditioner hierarchy of an assembled
+elastic operator, shared by the stepper's unstructured row and the
+matrix-free Newton.
+
+The assembled K_el (scipy CSR, BCs not eliminated) picks the fine operator:
+its block stencil when the connectivity is a lex lattice
+(blockstencil.detect), else the fused gather/scatter operator. The
+preconditioner is geometric lattice MG on a lattice above `gmg_min` DOFs,
+else SA-AMG (its transfers run kernel K3). The hierarchy is built from
+`A_hier`, which may differ from K_el: the Newton builds it on its
+zero-opening tangent, whose interface couplings join nodes that no lattice
+numbering keeps neighbours, so the lattice is detected on K_el alone.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+from fem_tpu_torch.ops import blockstencil, operator
+from fem_tpu_torch.solver import amg, gmg
+
+
+class FineAndHierarchy(NamedTuple):
+    fine: Callable  # v -> K_el v
+    dims: Optional[Tuple[int, ...]]  # the node lattice, None off one
+    kind: str  # "gmg" | "amg"
+    hier: object  # gmg.GMGPrecond | amg.AMGPrecond
+    sizes: List[int]  # DOFs per level, fine first
+    t_op: float  # host seconds: detection and the fine operator
+    t_hier: float  # host seconds: the hierarchy
+
+    def preconditioner(self, masked_fine: Callable) -> Callable:
+        mod = gmg if self.kind == "gmg" else amg
+        return mod.preconditioner(self.hier, masked_fine)
+
+
+def build(system, A_el, A_hier=None, gmg_min: int = 0,
+          coarse_max: int = 1200) -> FineAndHierarchy:
+    """The fine operator of `A_el` and the hierarchy of `A_hier` (default
+    `A_el`); `coarse_max` is SA-AMG's dense coarse size."""
+    dtype, dev = system.dtype, system.device
+    pdim, n = system.pdim, system.ndof
+    A_hier = A_el if A_hier is None else A_hier
+    t0 = time.perf_counter()
+    dims = blockstencil.detect(A_el, pdim, n // pdim)
+    if dims is not None:
+        bop = blockstencil.build(A_el, pdim, dims, dtype=dtype, device=dev)
+        fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
+    else:
+        fop = operator.build(system)
+        fine = lambda v: operator.matvec(fop, v)  # noqa: E731
+    t_op = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = None
+    if dims is not None and n > gmg_min:
+        hier = gmg.build_lattice(A_hier, pdim, dims, bc_dofs=system.bc_dofs,
+                                 dtype=dtype, device=dev)
+    if hier is not None:
+        kind = "gmg"
+        sizes = [int(np.prod(lv.dims)) * pdim for lv in hier.levels] + [
+            hier.coarse_inv.shape[0]]
+    else:
+        kind = "amg"
+        hier = amg.build(system, system.bc_dofs, coarse_max=coarse_max,
+                         A=A_hier)
+        sizes = [n] + [lv.n_coarse for lv in hier.levels[:-1]]
+    return FineAndHierarchy(fine=fine, dims=dims, kind=kind, hier=hier,
+                            sizes=sizes, t_op=t_op,
+                            t_hier=time.perf_counter() - t0)

@@ -1,16 +1,19 @@
-"""Incremental quasi-static time stepping — the driver loop, linear branch.
+"""Incremental quasi-static time stepping — the time loop.
 
-Port of the linear branch of `fem_tpu.solver.stepper.run`. Mirrors
-main.F90:216-296: for interval k = 1,2,..., t_init = dt*(k-1) until
-t_init >= t; each step forms the time-windowed RHS, solves, and accumulates
-aggregate_u += du and aggregate_stress += nodal stress of the increment.
+Port of `fem_tpu.solver.stepper.run` (linear paths and the cohesive Newton
+path). Mirrors main.F90:216-296: for interval k = 1,2,..., t_init = dt*(k-1)
+until t_init >= t; each step forms the time-windowed RHS, solves (a linear
+solve, or one Newton solve on cohesive decks, logged as "SNES Iteration
+Count"), and accumulates aggregate_u += du and aggregate_stress += nodal
+stress of the increment.
 `stype == "explicit"` performs no solve and writes zeros, like the reference
 (main.F90:199,238).
 
 The solver path is chosen by one table, PATHS: the first row whose predicate
 holds for the problem's features names the path. Rows of paths that are not
 ported yet raise NotImplementedError naming their ROADMAP item; later slices
-port a path by giving its row a setup function.
+port a path by giving its row a setup function. Every setup returns one
+step(F, du_prev, aggregate_u, t_end) -> Increment.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,9 +29,9 @@ import torch
 from fem_tpu_torch.config import Config
 from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.models.system import PENALTY, System
-from fem_tpu_torch.ops import blockstencil, operator, structured
+from fem_tpu_torch.ops import structured
 from fem_tpu_torch.ops.stiffness import lame
-from fem_tpu_torch.solver import amg, cg, direct, gmg, multigrid
+from fem_tpu_torch.solver import amg, cg, direct, hierarchy, multigrid, newton
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +50,7 @@ class Features:
 # (path name, predicate on Features, ROADMAP item when not ported yet)
 PATHS = (
     ("explicit", lambda f: f.explicit, None),
-    ("cohesive_newton", lambda f: f.cohesive, "A.7"),
+    ("cohesive_newton", lambda f: f.cohesive, None),
     ("creep", lambda f: f.creep, "A.8"),
     ("sharded", lambda f: f.sharded, "A.9"),
     ("direct", lambda f: f.solver == "direct", None),
@@ -72,9 +75,23 @@ class StepResult:
     aggregate_u: np.ndarray  # (ndof,)
     aggregate_stress: np.ndarray  # (nnds, cpdim)
     du: np.ndarray  # last increment
-    krylov_iters: List[int]
+    krylov_iters: List[int]  # per step; inner iterations on cohesive decks
     nsteps: int
     path: str
+    # per step, cohesive decks only: Newton iterations, whether Newton met
+    # its tolerance, and the inner solves that took the GMRES fallback
+    newton_iters: List[int] = dataclasses.field(default_factory=list)
+    newton_converged: List[bool] = dataclasses.field(default_factory=list)
+    gmres_fallbacks: List[int] = dataclasses.field(default_factory=list)
+
+
+class Increment(NamedTuple):
+    """What one load step's solve hands the time loop."""
+
+    du: torch.Tensor
+    iters: Optional[int]  # Krylov iterations (inner ones under Newton);
+    # None after a direct solve
+    newton: Optional[newton.NewtonResult] = None  # cohesive decks
 
 
 def _setup_direct(system: System, config: Config, solver: str, spec, log):
@@ -95,8 +112,9 @@ def _setup_direct(system: System, config: Config, solver: str, spec, log):
     m, e, nn = direct.det_report(fac, ref_scale=kscale)
     log(f"    Direct LU: det(K) = {m:.6f} * 2^{e}"
         + (f", {nn} null pivot(s)" if nn else ""))
+    bc_vals = system.bc_step_vals()
 
-    def solve(F, bc_vals, x0):
+    def step(F, du_prev, aggregate_u, t_end):
         if bc_mode == "penalty":
             Fb = F.clone()
             Fb[bc] = PENALTY * bc_vals
@@ -105,9 +123,9 @@ def _setup_direct(system: System, config: Config, solver: str, spec, log):
             ubc[bc] = bc_vals
             Fb = F - K @ ubc
             Fb[bc] = bc_vals
-        return direct.solve_factorized(fac, Fb), None
+        return Increment(direct.solve_factorized(fac, Fb), None)
 
-    return solve
+    return step
 
 
 def _setup_structured(system: System, config: Config, solver: str, spec,
@@ -127,18 +145,18 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     bc_mask[system.bc_dofs] = True
     masked = cg.masked_operator(lambda v: structured.matvec(op, v), bc_mask)
     mf = bc_mask.to(dtype)
+    ubc = torch.zeros(system.ndof, dtype=dtype, device=dev)
+    ubc[system.bc_dofs] = system.bc_step_vals()
 
-    def solve(F, bc_vals, x0):
-        ubc = torch.zeros_like(F)
-        ubc[system.bc_dofs] = bc_vals
+    def step(F, du_prev, aggregate_u, t_end):
         b = cg.constrained_rhs(lambda v: structured.matvec(op, v), F,
                                bc_mask, ubc)
         res = cg.pcg(masked, b, precond=multigrid.preconditioner(hier),
                      rtol=config.rtol or 1e-9, atol=config.atol,
                      maxiter=config.maxiter or 400)
-        return res.x * (1.0 - mf) + ubc * mf, res.iters
+        return Increment(res.x * (1.0 - mf) + ubc * mf, res.iters)
 
-    return solve
+    return step
 
 
 def _setup_unstructured(system: System, config: Config, solver: str, spec,
@@ -154,47 +172,28 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     run to SA-AMG and solves again."""
     log("    AMG preconditioner (smoothed aggregation)")
     dtype, dev = system.dtype, system.device
-    pdim, n = system.pdim, system.ndof
+    n = system.ndof
     t0 = time.perf_counter()
     A_csr = amg.assemble_csr(system)
     t_asm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dims = blockstencil.detect(A_csr, pdim, n // pdim)
-    if dims is not None:
+    fh = hierarchy.build(system, A_csr, gmg_min=config.gmg_min,
+                         coarse_max=20000)
+    del A_csr
+    if fh.dims is not None:
         log("    Lattice topology: block-stencil fine operator")
-        bop = blockstencil.build(A_csr, pdim, dims, dtype=dtype, device=dev)
-        fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
-    else:
-        fop = operator.build(system)
-        fine = lambda v: operator.matvec(fop, v)  # noqa: E731
-    t_op = time.perf_counter() - t0
+    if fh.kind == "gmg":
+        log("    Geometric lattice-MG preconditioner")
+    log(f"    Unstructured set-up: assemble_csr {t_asm:.2f} s, operator "
+        f"{fh.t_op:.2f} s, hierarchy {fh.t_hier:.2f} s, level sizes "
+        f"{fh.sizes}")
+    fine = fh.fine
     bc_mask = torch.zeros(n, dtype=torch.bool, device=dev)
     bc_mask[system.bc_dofs] = True
     mf = bc_mask.to(dtype)
+    ubc = torch.zeros(n, dtype=dtype, device=dev)
+    ubc[system.bc_dofs] = system.bc_step_vals()
     masked = cg.masked_operator(fine, bc_mask)
-    state = {}
-
-    def use_sa(A=None):
-        h = amg.build(system, system.bc_dofs, coarse_max=20000, A=A)
-        state.update(pc=amg.preconditioner(h, masked), gmg=False)
-        return [n] + [lv.n_coarse for lv in h.levels[:-1]]
-
-    t0 = time.perf_counter()
-    sizes = None
-    if dims is not None and n > config.gmg_min:
-        h = gmg.build_lattice(A_csr, pdim, dims, bc_dofs=system.bc_dofs,
-                              dtype=dtype, device=dev)
-        if h is not None:
-            log("    Geometric lattice-MG preconditioner")
-            state.update(pc=gmg.preconditioner(h, masked), gmg=True)
-            sizes = [int(np.prod(lv.dims)) * pdim for lv in h.levels] + [
-                h.coarse_inv.shape[0]]
-    if sizes is None:
-        sizes = use_sa(A_csr)
-    del A_csr
-    log(f"    Unstructured set-up: assemble_csr {t_asm:.2f} s, operator "
-        f"{t_op:.2f} s, hierarchy {time.perf_counter() - t0:.2f} s, level "
-        f"sizes {sizes}")
+    state = {"pc": fh.preconditioner(masked), "gmg": fh.kind == "gmg"}
     cap = config.maxiter or 400
 
     def pcg(b, x0):
@@ -202,11 +201,9 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
                       rtol=config.rtol or 1e-9, atol=config.atol,
                       maxiter=cap)
 
-    def solve(F, bc_vals, x0):
-        ubc = torch.zeros_like(F)
-        ubc[system.bc_dofs] = bc_vals
+    def step(F, du_prev, aggregate_u, t_end):
         b = cg.constrained_rhs(fine, F, bc_mask, ubc)
-        x0 = torch.where(bc_mask, ubc, x0)
+        x0 = torch.where(bc_mask, ubc, du_prev)
         res = pcg(b, x0)
         if state["gmg"] and not (math.isfinite(res.resnorm)
                                  and res.iters < cap):
@@ -214,28 +211,63 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
                 + ("non-finite residual" if not math.isfinite(res.resnorm)
                    else f"{res.iters} inner iterations")
                 + ") -> SA-AMG demotion")
-            use_sa()
+            h = amg.build(system, system.bc_dofs, coarse_max=20000)
+            state.update(pc=amg.preconditioner(h, masked), gmg=False)
             res = pcg(b, x0)
-        return res.x * (1.0 - mf) + ubc * mf, res.iters
+        return Increment(res.x * (1.0 - mf) + ubc * mf, res.iters)
 
-    return solve
+    return step
 
 
 def _setup_jacobi(system: System, config: Config, solver: str, spec, log):
     """Matrix-free System.matvec with Jacobi-PCG, warm-started from the last
     increment (the reference never zeroes Vec_U)."""
     d = system.diag()
+    bc_vals = system.bc_step_vals()
 
-    def solve(F, bc_vals, x0):
+    def step(F, du_prev, aggregate_u, t_end):
         res = cg.solve_eliminated(system.matvec, F, d, system.bc_dofs,
-                                  bc_vals, x0=x0, rtol=config.rtol,
+                                  bc_vals, x0=du_prev, rtol=config.rtol,
                                   atol=config.atol, maxiter=config.maxiter)
-        return res.x, res.iters
+        return Increment(res.x, res.iters)
 
-    return solve
+    return step
+
+
+def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
+    """The cohesive Newton path (fem_tpu's stepper.py:1264-1288), one Newton
+    solve per step, logged as the reference's "SNES Iteration Count".
+    formulation "total" takes the dense true-equilibrium Newton, the direct
+    solver the dense incremental one (SNES with the MUMPS stand-in), and
+    otherwise the matrix-free Newton-Krylov, whose operators and hierarchy
+    are built here, once for the run."""
+    sublog = lambda m: log("    " + m)  # noqa: E731
+    if config.formulation == "total":
+        def newton_step(F, du, agg, t_end):
+            return newton.solve_step_total(system, config, agg, du, t_end)
+    elif solver == "direct":
+        bc_mode = config.resolve_bc_mode(solver)
+
+        def newton_step(F, du, agg, t_end):
+            return newton.solve_step(system, config, agg, du, F,
+                                     bc_mode=bc_mode)
+    else:
+        ops = newton.matfree_operators(system, config, log=sublog)
+
+        def newton_step(F, du, agg, t_end):
+            return newton.solve_step_matfree(system, config, agg, du, F,
+                                             ops=ops, log=sublog)
+
+    def step(F, du_prev, aggregate_u, t_end):
+        res = newton_step(F, du_prev, aggregate_u, t_end)
+        log(f"    SNES Iteration Count: {res.iters}")
+        return Increment(res.du, res.inner_iters, res)
+
+    return step
 
 
 _SETUP = {
+    "cohesive_newton": _setup_cohesive,
     "direct": _setup_direct,
     "structured_mg_cg": _setup_structured,
     "unstructured_amg_or_lattice_gmg_cg": _setup_unstructured,
@@ -271,19 +303,27 @@ def run(
                                    device=device)
     du = torch.zeros(n, dtype=dtype, device=device)
     krylov_iters: List[int] = []
+    newton_iters: List[int] = []
+    newton_converged: List[bool] = []
+    gmres_fallbacks: List[int] = []
     nsteps = problem.nsteps
 
     if path != "explicit":
         system = System(problem, dtype, device=device,
                         plane_stress=config.plane_stress)
-        solve = _SETUP[path](system, config, solver, spec, log)
-        bc_vals = system.bc_step_vals()
+        step = _SETUP[path](system, config, solver, spec, log)
         for k in range(1, nsteps + 1):
             log(f"Interval: {k}")
-            F = system.rhs(problem.dt * (k - 1))
-            du, iters = solve(F, bc_vals, du)
-            if iters is not None:
-                krylov_iters.append(int(iters))
+            t_init = problem.dt * (k - 1)
+            inc = step(system.rhs(t_init), du, aggregate_u,
+                       t_init + problem.dt)
+            du = inc.du
+            if inc.iters is not None:
+                krylov_iters.append(int(inc.iters))
+            if inc.newton is not None:
+                newton_iters.append(inc.newton.iters)
+                newton_converged.append(inc.newton.converged)
+                gmres_fallbacks.append(inc.newton.gmres_fallbacks)
             aggregate_u = aggregate_u + du
             aggregate_stress = aggregate_stress + system.stress_increment(du)
     else:
@@ -297,4 +337,7 @@ def run(
         krylov_iters=krylov_iters,
         nsteps=nsteps,
         path=path,
+        newton_iters=newton_iters,
+        newton_converged=newton_converged,
+        gmres_fallbacks=gmres_fallbacks,
     )

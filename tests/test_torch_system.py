@@ -86,9 +86,20 @@ def test_direct_helpers_match_fem_tpu():
 
 
 def test_cohesive_terms_not_ported():
-    s = System(problem_mod.load(deck("two_quads_qs.inp")), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        s.coh_force(torch.zeros(s.ndof, dtype=torch.float64))
+    """Once unported (ROADMAP A.7), the cohesive terms now exist: a deck
+    without a cohesive block has none, and on cohesive_test_2 a closed
+    interface carries no force while an opened one carries forces that act
+    on its cohesive nodes only and balance (action and reaction)."""
+    s = System(problem_mod.load(deck("lin_two_quads_qs.inp")), device="cpu")
+    assert s.coh is None
+    s = System(problem_mod.load(deck("cohesive_test_2.inp")), device="cpu")
+    zero = torch.zeros(s.ndof, dtype=torch.float64)
+    assert not s.coh_force(zero).any()
+    u = torch.as_tensor(np.random.default_rng(0).normal(size=s.ndof) * 1e-3)
+    f = s.coh_force(u).reshape(-1, 2)
+    assert float(f.abs().max()) > 0.0
+    assert not f[[0, 1, 3, 5]].any()  # nodes 1, 2, 4, 6: no cohesive element
+    assert float(f.sum(0).abs().max()) < 1e-12 * float(f.abs().max())
 
 
 @pytest.mark.parametrize("path,name,solver,bc_mode", [
@@ -122,16 +133,20 @@ def test_path_table_rows():
         **{**f, "explicit": True, "cohesive": True})) == "explicit"
     assert stepper.choose_path(stepper.Features(
         **{**f, "precond": "amg"})) == "unstructured_amg_or_lattice_gmg_cg"
-    for key, value, item in (("cohesive", True, "A.7"), ("creep", True, "A.8"),
-                             ("sharded", True, "A.9")):
+    assert stepper.choose_path(stepper.Features(
+        **{**f, "cohesive": True})) == "cohesive_newton"
+    for key, value, item in (("creep", True, "A.8"), ("sharded", True, "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             stepper.choose_path(stepper.Features(**{**f, key: value}))
 
 
 def test_unported_rows_raise_from_run():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        stepper.run(problem_mod.load(deck("cohesive_test_2.inp")),
+    # the cohesive row (ROADMAP A.7) now runs; creep still raises (A.8)
+    r = stepper.run(problem_mod.load(deck("cohesive_test_2.inp")),
                     Config(device="cpu"))
+    assert r.path == "cohesive_newton" and r.newton_iters[0] == 1
+    with pytest.raises(NotImplementedError, match="A.8"):
+        Config(device="cpu", viscoelastic=True)
     # a jittered box (no uniform grid) above amg_threshold takes the
     # unstructured amg row: SA-AMG at or below gmg_min, converged
     box = meshgen.hex_box_problem(2, 2, 2, jitter=0.3)

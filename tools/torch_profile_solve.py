@@ -2,6 +2,7 @@
 
     python tools/torch_profile_solve.py [--n 80] [--reps 3] [--trace PATH]
     python tools/torch_profile_solve.py --amg [--n 55] [--reps 1]
+    python tools/torch_profile_solve.py --coh [--n 360] [--reps 1]
 
 Default: the structured MG-CG path of stepper.run on the n^3-cell hex8 box
 (n = 80: 1,594,323 DOFs). With --amg: the unstructured path's SA-AMG branch
@@ -9,7 +10,11 @@ on the node-permuted, jittered n^3 box (n = 55: 526,848 DOFs, the box of
 bench.bench_amg_solve); its set-up is split into assemble_csr, fused
 operator and hierarchy build (the stepper's own log line), and the fine
 matvec is timed as the fused operator against kernel K3 on the assembled
-matrix in ELL form. float64 throughout, on the CUDA card.
+matrix in ELL form. With --coh: the cohesive Newton path on fem_tpu's
+benchmark strip (cohesive_interface_problem(n, n // 5), lx = 5; n = 360:
+105,412 DOFs), matrix-free Newton-Krylov with the block stencil and lattice
+GMG; the profiled "solve" is the first load step's Newton solve, from zero, to
+u_y = 0.0075 on the top edge. float64 throughout, on the CUDA card.
 
 Each phase is timed on the host clock around a synchronize, after one
 warm-up pass that builds the kernels. Every phase then runs once more under
@@ -84,7 +89,7 @@ def structured_phases(n, dev, config, log):
         ("detect", lambda: st.update(spec=structured.detect(problem))),
         ("system", lambda: st.update(system=System(problem, torch.float64,
                                                    device=dev))),
-        ("op+mg build", lambda: st.update(solve=stepper._setup_structured(
+        ("op+mg build", lambda: st.update(step=stepper._setup_structured(
             st["system"], config, "cg", st["spec"], log))),
     ], st
 
@@ -100,8 +105,24 @@ def amg_phases(n, dev, config, log):
         ("system", lambda: st.update(system=System(problem, torch.float64,
                                                    device=dev))),
         ("unstructured set-up", lambda: st.update(
-            solve=stepper._setup_unstructured(st["system"], config, "cg",
-                                              None, log))),
+            step=stepper._setup_unstructured(st["system"], config, "cg",
+                                             None, log))),
+    ], st
+
+
+def coh_phases(n, dev, config, log):
+    problem = meshgen.cohesive_interface_problem(
+        n, n // 5, lx=5.0, ly_half=1.0, E=3640.0, open_disp=0.015, t=1.0,
+        dt=0.5, coh_props=(100.0, 0.01, 0.01, 1.0, 0.0, 0.0))
+    print(f"cohesive Newton-Krylov: {n} x {n // 5} x 2 quads, "
+          f"{problem.blocks['coh'].ne} cohesive elements, {problem.ndof} DOFs, "
+          f"float64")
+    st = {}
+    return problem, [
+        ("system", lambda: st.update(system=System(problem, torch.float64,
+                                                   device=dev))),
+        ("newton set-up", lambda: st.update(step=stepper._setup_cohesive(
+            st["system"], config, "cg", None, log))),
     ], st
 
 
@@ -130,29 +151,37 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--amg", action="store_true",
                     help="the unstructured SA-AMG path on the permuted box")
+    ap.add_argument("--coh", action="store_true",
+                    help="the cohesive Newton path on the benchmark strip")
     ap.add_argument("--n", type=int, default=None,
-                    help="cells per axis (default 80, or 55 with --amg)")
+                    help="cells per axis (default 80, 55 with --amg, 360 "
+                         "along the strip with --coh)")
     ap.add_argument("--reps", type=int, default=None,
                     help="timed passes (default 3, or 1 with --amg)")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    n = args.n or (55 if args.amg else 80)
-    reps = args.reps or (1 if args.amg else 3)
+    n = args.n or (55 if args.amg else 360 if args.coh else 80)
+    reps = args.reps or (1 if args.amg or args.coh else 3)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
-    config = Config(device="cuda")
+    config = Config(device="cuda", solver="cg" if args.coh else "auto")
     msgs = []
-    problem, setup, st = (amg_phases if args.amg else structured_phases)(
-        n, dev, config, msgs.append)
+    problem, setup, st = (amg_phases if args.amg else coh_phases if args.coh
+                          else structured_phases)(n, dev, config, msgs.append)
+
+    def solve():
+        F = st["F"]
+        st.update(out=st["step"](F, torch.zeros_like(F), torch.zeros_like(F),
+                                 problem.dt))
+
     phases = setup + [
         ("rhs", lambda: st.update(F=st["system"].rhs(0.0))),
-        ("solve", lambda: st.update(out=st["solve"](
-            st["F"], st["system"].bc_step_vals(), torch.zeros_like(st["F"])))),
-        ("stress", lambda: st["system"].stress_increment(st["out"][0])),
+        ("solve", solve),
+        ("stress", lambda: st["system"].stress_increment(st["out"].du)),
     ]
 
     times = {}
@@ -163,11 +192,15 @@ def main():
             _, t = sync_time(fn)
             if rep:
                 times.setdefault(name, []).append(t)
-    iters = st["out"][1]
+    iters = st["out"].iters
+    if args.coh:
+        r = st["out"].newton
+        print(f"Newton iterations {r.iters} (converged {r.converged}), inner "
+              f"CG iterations {iters}, GMRES fallbacks {r.gmres_fallbacks}")
     print(f"CG iterations {iters}, launches per pass "
           f"{dict(cuda_kernels.launches)}")
     for m in msgs:
-        if "set-up" in m:
+        if "set-up" in m or "wall" in m:
             print(f"  stepper: {m.strip()}")
     device_ms = {}
     for name, fn in phases:

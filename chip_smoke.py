@@ -2,25 +2,45 @@
 
     python3 chip_smoke.py
 
+Every kernel is timed four ways beside its bound (the larger of its least
+bytes over 3.35 TB/s and its least operations over the FP64 / FP32 peak):
+one launch between synchronizations (the times of earlier runs; they hold
+the wrapper's host time), launches back to back, one launch after a 256 MB
+read that empties the L2 ("cold", the bound's share is taken of it), and
+its plain torch version; beside it, where one PyTorch call computes the
+same function, that call (cuSPARSE's CSR SpMV through torch.mv), which the
+port never calls, timed the same three ways.
+
 Phases, each of which exits non-zero when it fails:
   1. the card's name and power limit (nvidia-smi);
   2. build of the CUDA kernels from fem_tpu_torch/csrc (nvcc, sm_90a);
   3. kernel K1 (hex8 stiffness) against its plain torch version, float64 and
      float32, at 131,072 jittered elements and at the shapes the main path
-     gives it, with both times;
-  4. kernel K2 (stencil matvec) against its plain version on the 81^3 node
-     grid and on (9, 7, 6), float64 and float32, with both times;
+     gives it, with its times;
+  4. kernel K2 (the collapsed 27-point stencil) against the per-corner
+     masked form and its own plain version, float64 and float32, the same
+     bits on a second call, on the 81^3 node grid, on (9, 7, 6) and on the
+     degenerate grids (2, 2, 2), (3, 2, 9) and (1, 4, 5); then the
+     unjittered 55^3 box (56^3 nodes): K2's times beside cuSPARSE on its
+     assembled matrix;
   5. the CLI on the elastic golden deck with --device cuda, checked against
      the golden numbers (u_y 0.05 / 0.10, nodal stress 105 / 245 / 0);
   6. a small hex box on the direct path (K1 assembles k_e), checked against
      the same run on the CPU;
   7. stepper.run on the 80^3 hex8 box (1,594,323 DOFs, float64) through the
      structured MG-CG path, with the true relative residual recomputed with
-     K2's plain version, and the launch counts of that run;
-  8. kernel K3 (ELL SpMV) against its plain version, float64 and float32,
-     on a random table (n = 200,000, w = 81) and, in phase 9, on the real
-     prolongation, restriction and ELL mid-level tables of the 526,848-DOF
-     SA-AMG hierarchy, with both times and each table's padding;
+     the per-corner form, its MG-CG iteration count (12, +-1), and the launch
+     counts of that run (K2's by MG level); then K2 checked as in phase 4 on
+     the operator of every level of that run's multigrid hierarchy (81^3
+     down to 6^3, rebuilt by multigrid.build as the stepper builds it), and
+     K2's times on the 81^3 grid beside cuSPARSE on the box's assembled
+     matrix;
+  8. kernel K3 (CSR SpMV) against its plain version, float64 and float32,
+     with the same bits on a second call and its times beside cuSPARSE on
+     the same CSR, on a random table (n = 200,000, 81 nonzeros a row) and,
+     in phase 9, on the real prolongation, restriction and CSR mid-level
+     tables of the 526,848-DOF SA-AMG hierarchy and on the box's assembled
+     matrix (measured only: the path's fine operator is the fused one);
   9. the permuted, jittered 55^3 hex8 box (526,848 DOFs, float64): host
      set-up phases (assemble_csr, amg.build with its level sizes, fused
      operator), then stepper.run through unstructured_amg_or_lattice_gmg_cg
@@ -46,13 +66,14 @@ Phases, each of which exits non-zero when it fails:
      System.coh_force;
  13. the same strip node-permuted, through the fused operator and SA-AMG
      (K3 in its transfers), its u mapped back and held against phase 12's;
-     then K3 against its plain version on every P, R and ELL mid-level
+     then K3 against its plain version on every P, R and CSR mid-level
      table of that run's hierarchy (rebuilt by newton.matfree_operators).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero before printing any result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,12 +91,32 @@ def check(cond, msg):
         fail(msg)
 
 
-def time_ms(torch, fn, reps):
-    """Median CUDA-event time of fn() over reps calls, after one warm-up."""
+def time_back_to_back_ms(torch, fn, reps):
+    """Mean CUDA-event time per call of reps calls issued back to back: the
+    card's time per call where the host issues them faster than it runs
+    them, else the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_ms(torch, fn, reps, flush=None):
+    """Median CUDA-event time of fn() over reps calls, after one warm-up.
+    With `flush` (a tensor several times the L2's 50 MB), the L2 is emptied
+    by a read of it before each timed call: the cold time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -85,6 +126,49 @@ def time_ms(torch, fn, reps):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+# NVIDIA's H100 SXM data sheet: HBM3 at 3.35 TB/s; FP64 34 TFLOP/s and FP32
+# 67 TFLOP/s without the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+
+
+def bound(nbytes, flops, dtype_name):
+    """(ms, kind): the least time of the work on the card, the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure(torch, label, dtype_name, kernel, plain, library, nbytes, flops,
+            flush, reps=50, plain_reps=10):
+    """Times of a kernel against its bound, its plain version and a library
+    call (None where no single PyTorch call computes the same function);
+    prints them on one line and returns them."""
+    b_ms, b_kind = bound(nbytes, flops, dtype_name)
+
+    def three_ways(fn):
+        return dict(ms=time_ms(torch, fn, reps),
+                    back_to_back_ms=time_back_to_back_ms(torch, fn, reps),
+                    cold_ms=time_ms(torch, fn, max(reps // 2, 5), flush))
+
+    m = dict(three_ways(kernel), plain_ms=time_ms(torch, plain, plain_reps),
+             bound_ms=b_ms, bound_by=b_kind)
+    lib = {} if library is None else three_ways(library)
+    for key in ("ms", "back_to_back_ms", "cold_ms"):
+        m[f"library_{key}"] = lib.get(key)
+    lib = ("none" if library is None else
+           f"{m['library_ms']:.4f} (back to back "
+           f"{m['library_back_to_back_ms']:.4f}, cold "
+           f"{m['library_cold_ms']:.4f})")
+    print(f"  {label} {dtype_name}: kernel {m['ms']:.4f} ms (back to back "
+          f"{m['back_to_back_ms']:.4f}, cold {m['cold_ms']:.4f}), bound "
+          f"{b_ms:.4f} ms by {b_kind} ({nbytes} bytes, {flops} flops; "
+          f"{100 * b_ms / m['cold_ms']:.1f}% of it cold), plain "
+          f"{m['plain_ms']:.4f} ms, library {lib} ms", flush=True)
+    return m
 
 
 def main():
@@ -104,7 +188,7 @@ def main():
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import operator, structured
     from fem_tpu_torch.ops.stiffness import lame
-    from fem_tpu_torch.solver import amg, cg, newton, stepper
+    from fem_tpu_torch.solver import amg, cg, multigrid, newton, stepper
 
     # float32 products in the plain versions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -130,6 +214,16 @@ def main():
             print(f"  ptxas: {line.strip()}")
 
     summary = {}
+    # read before each cold launch: 256 MB, five times the L2
+    flush = torch.ones(32 * 2**20, dtype=torch.float64, device=dev)
+
+    def csr_library(indptr, indices, data, shape):
+        """The yardstick of K3: `torch.mv` on a torch sparse CSR tensor (int32
+        indices; cuSPARSE's SpMV). The port never calls it."""
+        A = torch.sparse_csr_tensor(indptr.to(torch.int32),
+                                    indices.to(torch.int32), data,
+                                    size=shape, check_invariants=False)
+        return lambda x: torch.mv(A, x)
 
     # 3. K1 against its plain version
     base = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
@@ -162,12 +256,16 @@ def main():
         name = str(dtype).split(".")[-1]
         args = k1_inputs(131072, dtype)
         err = k1_case(args, tol, f"{name} ne=131072")
-        ms = time_ms(torch, lambda: ck.hex8_stiffness(*args), 20)
-        plain_ms = time_ms(torch, lambda: ck.hex8_stiffness_plain(*args), 5)
-        print(f"K1 {name} ne=131072: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms", flush=True)
+        # least bytes: (3, 8, ne) coordinates and lam, mu in, (24, 24, ne)
+        # out; least operations: one FMA per k_e entry and Gauss point
+        isz = args[0].element_size()
+        m = measure(torch, "K1 ne=131072", name,
+                    lambda: ck.hex8_stiffness(*args),
+                    lambda: ck.hex8_stiffness_plain(*args), None,
+                    (26 + 576) * 131072 * isz, 2 * 8 * 576 * 131072, flush,
+                    reps=20, plain_reps=5)
         if dtype == torch.float64:
-            summary["hex8_stiffness"] = (err, ms, plain_ms)
+            summary["hex8_stiffness"] = dict(m, max_abs_err=err)
         k1_case(k1_inputs(300, dtype, seed=1), tol, f"{name} ne=300")
         # the structured build's reference pair: one cell, (lam, mu) = (1, 0)
         # and (0, 1)
@@ -180,33 +278,102 @@ def main():
     # 4. K2 against its plain version
     lam_s, mu_s = lame(torch.tensor(200e9, dtype=torch.float64),
                        torch.tensor(0.3, dtype=torch.float64))
-    for shape, cells in (((81, 81, 81), (1 / 80,) * 3),
-                         ((9, 7, 6), (0.1, 0.2, 0.15))):
-        op64 = structured.build(cells, shape, lam_s, mu_s,
-                                dtype=torch.float64, device=dev)
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+    k2_tols = ((torch.float64, 1e-12), (torch.float32, 1e-6))
+
+    def k2_inputs(op, dtype):
+        """(k_ref, K2's tables, u) of op in dtype on the card: the tables the
+        operator holds in its own dtype, else built anew."""
+        rng = np.random.default_rng(0)
+        k = op.k_ref.to(dtype).contiguous()
+        t = (op.tables if dtype == op.k_ref.dtype
+             else ck.stencil_tables(k, op.shape))
+        return (k, t, torch.as_tensor(rng.standard_normal(op.ndof),
+                                      dtype=dtype, device=dev))
+
+    def k2_case(op):
+        """K2 against the per-corner form and its own plain version, in
+        float64 and float32, and the same bits on a second call; returns the
+        float64 max abs error."""
+        shape = op.shape
+        for dtype, tol in k2_tols:
             name = str(dtype).split(".")[-1]
-            k = op64.k_ref.to(dtype).contiguous()
-            rng = np.random.default_rng(0)
-            u = torch.as_tensor(rng.standard_normal(op64.ndof), dtype=dtype,
-                                device=dev)
-            got = ck.stencil_matvec(k, u, shape)
+            k, t, u = k2_inputs(op, dtype)
+            got = ck.stencil_matvec(t, u)
+            again = ck.stencil_matvec(t, u)
             ref = ck.stencil_matvec_plain(k, u, shape)
+            ref27 = ck.stencil27_plain(t, u)
             torch.cuda.synchronize()
-            rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
-            print(f"K2 {name} {shape}: rel norm diff {rel:.3e} (tol "
-                  f"{tol:.0e})", flush=True)
             check(bool(torch.isfinite(got).all()), f"K2 {shape}: non-finite")
-            check(rel <= tol, f"K2 {name} {shape}: rel diff {rel} > {tol}")
-            if shape == (81, 81, 81):
-                ms = time_ms(torch, lambda: ck.stencil_matvec(k, u, shape), 50)
-                plain_ms = time_ms(
-                    torch, lambda: ck.stencil_matvec_plain(k, u, shape), 10)
-                print(f"K2 {name} {shape}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms", flush=True)
-                if dtype == torch.float64:
-                    summary["stencil_matvec"] = (
-                        float((got - ref).abs().max()), ms, plain_ms)
+            check(torch.equal(got, again), f"K2 {name} {shape}: two calls "
+                  f"gave different bits")
+            nref = float(torch.linalg.norm(ref))
+            diffs = [float(torch.linalg.norm(got - r)) for r in (ref, ref27)]
+            # an axis of one node has no cell: K.u is 0 there, exactly
+            rel, rel27 = (d / nref if nref else d for d in diffs)
+            print(f"K2 {name} {shape}: rel norm diff {rel:.3e} against the "
+                  f"per-corner form, {rel27:.3e} against the tables' plain "
+                  f"form (tol {tol:.0e})", flush=True)
+            check(max(rel, rel27) <= tol,
+                  f"K2 {name} {shape}: rel diff {rel}, {rel27} > {tol}")
+            if dtype == torch.float64:
+                err = float((got - ref).abs().max())
+        return err
+
+    def k2_measure(op, A_csr):
+        """K2's times on op's grid beside cuSPARSE on the assembled matrix of
+        the same box (checked to be the same function); returns the float64
+        measurements."""
+        shape, nodes = op.shape, int(np.prod(op.shape))
+        out = None
+        # the assembled matrix rounds k_e's sums in another order: in float32
+        # the two agree to a few ulps of the larger terms, not of K.u
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            name = str(dtype).split(".")[-1]
+            _, t, u = k2_inputs(op, dtype)
+            lib = csr_library(
+                torch.as_tensor(A_csr.indptr, device=dev),
+                torch.as_tensor(A_csr.indices, device=dev),
+                torch.as_tensor(A_csr.data, dtype=dtype, device=dev),
+                A_csr.shape)
+            got = ck.stencil_matvec(t, u)
+            rel = float(torch.linalg.norm(lib(u) - got)
+                        / torch.linalg.norm(got))
+            print(f"K2 {name} {shape}: rel norm diff against the assembled "
+                  f"matrix ({A_csr.nnz} nonzeros) {rel:.3e}", flush=True)
+            check(rel <= tol, f"K2 {name} {shape} vs assembled: {rel}")
+            # least bytes: u in, K.u out, k_ref; least operations: the
+            # collapsed 27-point form, 243 FMAs per node
+            m = measure(torch, f"K2 {shape}", name,
+                        lambda: ck.stencil_matvec(t, u),
+                        lambda: ck.stencil27_plain(t, u),
+                        lambda: lib(u),
+                        (6 * nodes + 576) * u.element_size(),
+                        2 * 243 * nodes, flush)
+            out = out or m
+        return out
+
+    for shape, cells in (((81, 81, 81), (1 / 80,) * 3),
+                         ((9, 7, 6), (0.1, 0.2, 0.15)),
+                         ((2, 2, 2), (0.1, 0.2, 0.15)),
+                         ((3, 2, 9), (0.1, 0.2, 0.15)),
+                         ((1, 4, 5), (0.1, 0.2, 0.15))):
+        k2_err = k2_case(structured.build(cells, shape, lam_s, mu_s,
+                                          dtype=torch.float64, device=dev))
+        if shape == (81, 81, 81):
+            k2_err81 = k2_err
+    # the unjittered 55^3 box (56^3 nodes): K2 beside cuSPARSE on its
+    # assembled matrix
+    box56 = meshgen.hex_box_problem(55, 55, 55, lx=1.0, ly=1.0, lz=1.0,
+                                    E=200e9, nu=0.3)
+    spec56 = structured.detect(box56)
+    op56 = structured.build(spec56["cell_sizes"], spec56["node_shape"], lam_s,
+                            mu_s, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    A56 = amg.assemble_csr(System(box56, torch.float64, device=dev))
+    print(f"56^3 nodes: assemble_csr {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    k2_measure(op56, A56)
+    del A56
 
     # 5. CLI on the elastic golden deck, on the card
     deck = "examples/ref/SNES_test/elastic/elastic_test.inp"
@@ -244,19 +411,34 @@ def main():
                                   E=200e9, nu=0.3, tip_load=-1e6)
     check(big.ndof == 1594323, f"80^3 box has {big.ndof} DOFs")
     torch.cuda.synchronize()
+    # K2's calls by node grid (MG level), tallied around the wrapper
+    k2_by_grid = {}
+    k2_wrapper = ck.stencil_matvec
+
+    def k2_tally(t, v):
+        k2_by_grid[t.shape] = k2_by_grid.get(t.shape, 0) + 1
+        return k2_wrapper(t, v)
+
+    ck.stencil_matvec = k2_tally
     ck.reset_launches()
     t0 = time.perf_counter()
-    res = stepper.run(big, Config(device="cuda"))
-    torch.cuda.synchronize()
+    try:
+        res = stepper.run(big, Config(device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        ck.stencil_matvec = k2_wrapper
     wall = time.perf_counter() - t0
     launches = dict(ck.launches)
+    print(f"80^3 box: K2 calls by node grid {k2_by_grid}", flush=True)
+    check(sum(k2_by_grid.values()) == launches["stencil_matvec"],
+          "K2's calls and launches differ")
     check(res.path == "structured_mg_cg", f"80^3 box took path {res.path}")
     u = torch.as_tensor(res.aggregate_u, dtype=torch.float64, device=dev)
     check(bool(torch.isfinite(u).all()), "80^3 solution is not finite")
     check(res.aggregate_stress.shape == (big.nnds, 6)
           and bool(np.isfinite(res.aggregate_stress).all()),
           "80^3 stress is not finite or has the wrong shape")
-    # true residual of the masked system, with K2's plain version
+    # true residual of the masked system, with the per-corner form
     system = System(big, torch.float64, device=dev)
     spec = structured.detect(big)
     lam_b, mu_b = lame(torch.tensor(spec["E"], dtype=torch.float64),
@@ -280,38 +462,72 @@ def main():
           f"{wall:.2f} s, min u_z {tip:.6e}, launches {launches}",
           flush=True)
     check(true_rel <= 1e-8, f"80^3 true relative residual {true_rel} > 1e-8")
+    # a wrong K2 on a coarse level weakens the preconditioner, not the
+    # residual: the iteration count shows it
+    check(len(res.krylov_iters) > 0
+          and all(abs(i - 12) <= 1 for i in res.krylov_iters),
+          f"80^3 MG-CG iterations {res.krylov_iters}, not 12 +- 1")
     check(tip < 0.0, "80^3 box: the tip load did not deflect the tip down")
     for name in ("hex8_stiffness", "stencil_matvec"):
         check(launches[name] > 0, f"the 80^3 run launched no {name}")
+    # K2 on every level's operator of that run's hierarchy, built as the
+    # stepper builds it
+    hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
+    level_shapes = [lv.op.shape for lv in hier.levels]
+    check(set(level_shapes) == set(k2_by_grid),
+          f"MG levels {level_shapes} are not the grids K2 ran on "
+          f"{sorted(k2_by_grid)}")
+    for lv in hier.levels:
+        k2_case(lv.op)
+    del hier
+    # K2 on this run's 81^3 grid beside cuSPARSE on the box's assembled matrix
+    t0 = time.perf_counter()
+    A_big = amg.assemble_csr(system)
+    print(f"80^3 box: assemble_csr {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    summary["stencil_matvec"] = dict(k2_measure(op, A_big),
+                                     max_abs_err=k2_err81)
+    del A_big
 
     # 8. K3 against its plain version on a random table
-    def k3_case(vals, cols, x, label, reps=50):
-        """K3 against its plain version in float64 and float32; returns the
-        float64 (max abs err, kernel ms, plain ms)."""
-        w, n = vals.shape
-        nnz = int((vals != 0).sum())
-        print(f"K3 {label}: n {n}, w {w}, lanes {ck.ell_lanes(w)}, padding "
-              f"{vals.numel() / max(nnz, 1):.3f} slots per nonzero",
-              flush=True)
+    def k3_case(t, x, label, reps=50):
+        """K3 (table t, an amg.Csr) against its plain version in float64 and
+        float32, the same bits on a second call, and its times beside
+        cuSPARSE on the same CSR; returns the float64 measurements."""
+        n, ncols = t.shape
+        nnz = t.data.shape[0]
+        print(f"K3 {label}: n {n}, {nnz} nonzeros, "
+              f"{nnz / max(n, 1):.1f} per row, lanes {t.lanes}", flush=True)
         out = None
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
             name = str(dtype).split(".")[-1]
-            v, xx = vals.to(dtype).contiguous(), x.to(dtype)
-            got = ck.ell_matvec(v, cols, xx)
-            ref = ck.ell_matvec_plain(v, cols, xx)
+            tt = dataclasses.replace(t, data=t.data.to(dtype))
+            xx = x.to(dtype)
+            got = tt(xx)
+            again = tt(xx)
+            ref = ck.csr_matvec_plain(tt.indptr, tt.indices, tt.data, xx)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"K3 {label}: non-finite")
+            check(torch.equal(got, again), f"K3 {name} {label}: two calls "
+                  f"gave different bits")
             err = float((got - ref).abs().max())
             rel = err / max(float(ref.abs().max()), 1e-300)
-            check(rel <= tol, f"K3 {name} {label}: max rel diff {rel} > {tol}")
-            ms = time_ms(torch, lambda: ck.ell_matvec(v, cols, xx), reps)
-            plain_ms = time_ms(
-                torch, lambda: ck.ell_matvec_plain(v, cols, xx), 10)
             print(f"K3 {name} {label}: max rel diff {rel:.3e} (tol "
-                  f"{tol:.0e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                  flush=True)
-            if out is None:
-                out = (err, ms, plain_ms)
+                  f"{tol:.0e})", flush=True)
+            check(rel <= tol, f"K3 {name} {label}: max rel diff {rel} > {tol}")
+            lib = csr_library(tt.indptr, tt.indices, tt.data, (n, ncols))
+            lib_rel = float((lib(xx) - ref).abs().max()) / max(
+                float(ref.abs().max()), 1e-300)
+            check(lib_rel <= tol, f"K3 {name} {label}: cuSPARSE {lib_rel}")
+            # least bytes: each nonzero's value and int32 column, x, out
+            m = measure(torch, f"K3 {label}", name, lambda: tt(xx),
+                        lambda: ck.csr_matvec_plain(tt.indptr, tt.indices,
+                                                    tt.data, xx),
+                        lambda: lib(xx),
+                        nnz * (tt.data.element_size() + 4)
+                        + (n + ncols) * tt.data.element_size(),
+                        2 * nnz, flush, reps=reps)
+            out = out or dict(m, max_abs_err=err)
         return out
 
     def k3_hierarchy(hier, label):
@@ -322,11 +538,10 @@ def main():
             n_f = lv.dinv.shape[0]
             tables = [("P", lv.P, lv.n_coarse), ("R", lv.R, n_f)]
             if lv.op is not None:
-                tables.append(("A (ELL mid level)", lv.op, n_f))
-            for name, e, nx in tables:
+                tables.append(("A (CSR mid level)", lv.op, n_f))
+            for name, t, nx in tables:
                 x = torch.as_tensor(rng.standard_normal(nx), device=dev)
-                res_k3 = k3_case(e.vals, e.cols, x,
-                                 f"{label} level {i} {name}")
+                res_k3 = k3_case(t, x, f"{label} level {i} {name}")
                 first = first or res_k3
         check(first is not None,
               f"the {label} hierarchy has no transfer level")
@@ -334,11 +549,17 @@ def main():
 
     rng = np.random.default_rng(0)
     n_r = 200000
-    k3_case(torch.as_tensor(rng.standard_normal((81, n_r)), device=dev),
-            torch.as_tensor(rng.integers(0, n_r, (81, n_r)), dtype=torch.int32,
-                            device=dev),
+    # 81 random nonzeros in each row (the ELL table of earlier runs)
+    vals = rng.standard_normal((81, n_r))
+    cols = rng.integers(0, n_r, (81, n_r))
+    k3_case(amg.Csr(torch.arange(0, 81 * n_r + 1, 81, device=dev),
+                    torch.as_tensor(cols.T.reshape(-1), dtype=torch.int32,
+                                    device=dev),
+                    torch.as_tensor(vals.T.reshape(-1), device=dev), n_r,
+                    ck.csr_lanes(n_r, 81 * n_r)),
             torch.as_tensor(rng.standard_normal(n_r), device=dev),
             "random n=200000 w=81")
+    del vals, cols
 
     # 9. the permuted 55^3 box: set-up phases, K3 on the real tables, and
     # stepper.run through SA-AMG
@@ -388,6 +609,11 @@ def main():
           f"{t_op:.2f} s", flush=True)
     k3_real = k3_hierarchy(hier, "55^3")
     del hier
+    # the assembled matrix (measured only: the SA branch's fine operator is
+    # the fused operator)
+    k3_case(amg.Csr.from_csr(A_csr, torch.float64, dev),
+            torch.as_tensor(rng.standard_normal(A_csr.shape[0]), device=dev),
+            "55^3 assembled A", reps=20)
 
     ck.reset_launches()
     msgs = []
@@ -415,7 +641,7 @@ def main():
           f"{float(u.reshape(-1, 3)[:, 2].min()):.6e}, launches "
           f"{launches_amg}", flush=True)
     check(true_rel <= 1e-8, f"permuted 55^3 true rel residual {true_rel}")
-    for name in ("hex8_stiffness", "ell_matvec"):
+    for name in ("hex8_stiffness", "csr_matvec"):
         check(launches_amg[name] > 0, f"the SA-AMG run launched no {name}")
     del system, A_csr, u
 
@@ -618,7 +844,7 @@ def main():
                                             "permuted cohesive strip, SA-AMG")
     check(any("SA-AMG" in m for m in msgs13),
           "the permuted strip did not take the fused operator and SA-AMG")
-    check(launches_coh["ell_matvec"] > 0, "the SA-AMG Newton launched no K3")
+    check(launches_coh["csr_matvec"] > 0, "the SA-AMG Newton launched no K3")
     u_back = np.empty((strip.nnds, 2))
     u_back[perm] = res13.aggregate_u.reshape(-1, 2)
     rel = float(np.abs(u_back.reshape(-1) - res12.aggregate_u).max()
@@ -634,21 +860,24 @@ def main():
     k3_hierarchy(ops.mg.hier, "strip")
     del ops
 
-    summary["ell_matvec"] = k3_real
-    launches["ell_matvec"] = (launches_amg["ell_matvec"]
-                              + launches_coh["ell_matvec"])
+    summary["csr_matvec"] = k3_real
+    launches["csr_matvec"] = (launches_amg["csr_matvec"]
+                              + launches_coh["csr_matvec"])
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),
         "stencil_matvec": ("fem_tpu_torch/csrc/stencil_matvec.cu",
                            "fem_tpu/ops/pallas_kernels.py:302"),
-        "ell_matvec": ("fem_tpu_torch/csrc/ell_matvec.cu",
+        "csr_matvec": ("fem_tpu_torch/csrc/csr_matvec.cu",
                        "fem_tpu/ops/pallas_kernels.py:432"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": summary[name][0],
-         "ms": summary[name][1], "plain_ms": summary[name][2]}
+         "launches": launches[name],
+         **{key: summary[name][key] for key in (
+             "max_abs_err", "ms", "back_to_back_ms", "cold_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "library_back_to_back_ms",
+             "library_cold_ms")}}
         for name, (src, rep) in sources.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

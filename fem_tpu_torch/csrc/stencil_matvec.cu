@@ -1,104 +1,233 @@
-// Kernel K2: matrix-free K.u on a uniform hex8 node grid, scalar material.
+// Kernel K2: matrix-free K.u on a uniform hex8 node grid, scalar material, as
+// the collapsed 27-point stencil.
 //
 // Replaces fem_tpu/ops/pallas_kernels.py:stencil_matvec_pallas (kernel body
-// _stencil_kernel_factory). Same result as
-// fem_tpu_torch.ops.cuda_kernels.stencil_matvec_plain, which keeps the
-// semantics of fem_tpu/ops/structured.py:_planes_core:
+// _stencil_kernel_factory); the collapsed form is fem_tpu's
+// ops/structured.py:matvec_planes27. Same result as
+// fem_tpu_torch.ops.cuda_kernels.stencil27_plain, and to rounding as
+// stencil_matvec_plain (the per-corner masked form of _planes_core):
 //
-//   out_p[n] = sum_a M_a[n] sum_{b,q} k[(a*3+p)*24 + b*3+q] u_q[n - off_a + off_b]
+//   out_p[n] = sum_{o, q} C[class(n), o, p, q] u_q[n + o]
 //
-// with a, b the 8 hex corners (offsets in fem_tpu's _HEX_OFFSETS order) and
-// M_a[n] = 1 when the cell at n - off_a exists (0 <= c <= n_axis - 2 on
-// every axis). u and out are (nx, ny, nz, 3) node-interleaved, z fastest.
+// with o the 27 node offsets in {-1, 0, 1}^3 (o = 9 (ox+1) + 3 (oy+1) +
+// (oz+1)) and class(n) = 9 cx + 3 cy + cz, where on each axis c = 0 at the
+// first node, 2 at the last and 1 between. The tables C (27 x 27 x 3 x 3,
+// cuda_kernels.stencil_tables, built once per operator) sum k_ref over the
+// corners whose cell exists at a node of that class; C[13] is the interior
+// stencil, fem_tpu's csum. u and out are (nx, ny, nz, 3) node-interleaved,
+// z fastest.
 //
-// What bounds it on the H100: not device memory. In float64 at 81^3 nodes,
-// u and out are 25 MB, 8 us of traffic at 3.35 TB/s, while each node does
-// 576 FMAs and 192 loads of its 27 neighbours' values. The loads hit L1
-// (neighbouring threads share neighbours), so the kernel is bound by load
-// and FMA instruction issue. The design keeps that count at the masked
-// per-corner form's 576 FMAs and reads k_ref from shared memory, where every
-// thread of a warp reads the same entry (a broadcast).
+// What bounds it on the H100: both rooflines meet. In float64 at 81^3 nodes
+// the interior form's 243 FMAs per node take 7.6 us at 34 TFLOP/s and u and
+// out (25.5 MB) take 7.6 us at 3.35 TB/s.
 //
-// Design: one thread per node computes all three components. The 576 k_ref
-// values are staged in shared memory per block. Boundaries are handled by
-// the cell-existence test per corner, computed from the node index, so no
-// padding of u is needed and any grid shape works (the Pallas kernel padded
-// y and z to the TPU's (8, 128) tiling). Threads are numbered z fastest, so
-// a warp reads and writes contiguous runs of u and out.
+// Design: one launch, two kinds of block.
+//  - Interior tiles cover the nodes 1 .. n-2 of every axis in tiles of
+//    TX x TY x TZ. A block stages its tile of u with a one-node halo,
+//    (TX+2)(TY+2)(TZ+2) nodes x 3, in shared memory, copying runs along z
+//    (coalesced) with cp.async: the copies of a thread are all in flight
+//    at once. Each thread owns one (y, z) and marches the TX nodes along
+//    x: a staged value is read once per plane and feeds up to three outputs,
+//    so a thread's TX nodes cost (TX + 2) x 27 shared loads for their
+//    TX x 243 FMAs. The interior coefficients C[13] are a kernel argument
+//    passed by value: every FMA takes its coefficient from the constant
+//    bank through the uniform registers, with no per-thread load.
+//  - Face blocks, launched first: one thread per boundary node (both x
+//    faces, then the y faces and the z faces without the nodes already
+//    counted) reads its 27 neighbours through L1 and its class's row of C
+//    through the read-only path. At 81^3 they are 38,402 of 531,441 nodes.
+// An axis of one node has no cell; its tables are 0 and so is K.u. Every sum
+// is taken in a fixed order.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
-constexpr int kThreads = 256;
-
-// fem_tpu/ops/structured.py:_HEX_OFFSETS: corner a -> (x, y, z) offset
-__device__ __forceinline__ int off_x(int a) { return ((a + 1) >> 1) & 1; }
-__device__ __forceinline__ int off_y(int a) { return (a >> 1) & 1; }
-__device__ __forceinline__ int off_z(int a) { return (a >> 2) & 1; }
+constexpr int TX = 4, TY = 8, TZ = 16;
+constexpr int kThreads = TY * TZ;
+constexpr int SX = TX + 2, SY = TY + 2, SZ = TZ + 2;
+constexpr int kStaged = SX * SY * SZ * 3;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil_matvec_kernel(const T* __restrict__ k, const T* __restrict__ u,
-                      T* __restrict__ out, int nx, int ny, int nz) {
-  __shared__ T sk[576];
-  for (int i = threadIdx.x; i < 576; i += blockDim.x) sk[i] = k[i];
-  __syncthreads();
+struct Interior {
+  T c[27 * 9];  // C[13][o][p][q]
+};
 
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)nx * ny * nz) return;
-  const int iz = (int)(n % nz);
-  const long long t = n / nz;
-  const int iy = (int)(t % ny);
-  const int ix = (int)(t / ny);
-
-  T acc0 = 0, acc1 = 0, acc2 = 0;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int cx = ix - off_x(a), cy = iy - off_y(a), cz = iz - off_z(a);
-    if (cx < 0 || cx > nx - 2 || cy < 0 || cy > ny - 2 || cz < 0 ||
-        cz > nz - 2)
-      continue;  // no cell at n - off_a: corner a contributes nothing
-    T p0 = 0, p1 = 0, p2 = 0;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const long long m =
-          ((long long)(cx + off_x(b)) * ny + (cy + off_y(b))) * nz +
-          (cz + off_z(b));
-      const T u0 = __ldg(u + 3 * m), u1 = __ldg(u + 3 * m + 1),
-              u2 = __ldg(u + 3 * m + 2);
-      const T* kr = sk + (a * 3) * 24 + b * 3;  // row (a, p=0), column (b, q)
-      p0 += kr[0] * u0 + kr[1] * u1 + kr[2] * u2;
-      p1 += kr[24] * u0 + kr[25] * u1 + kr[26] * u2;
-      p2 += kr[48] * u0 + kr[49] * u1 + kr[50] * u2;
-    }
-    acc0 += p0;
-    acc1 += p1;
-    acc2 += p2;
-  }
-  out[3 * n] = acc0;
-  out[3 * n + 1] = acc1;
-  out[3 * n + 2] = acc2;
+__device__ __forceinline__ int axis_class(int i, int n) {
+  return i == 0 ? 0 : (i == n - 1 ? 2 : 1);
 }
 
 template <typename T>
-int launch(const void* k, const void* u, void* out, int nx, int ny, int nz,
-           void* stream) {
-  const long long nodes = (long long)nx * ny * nz;
-  const unsigned grid = (unsigned)((nodes + kThreads - 1) / kThreads);
-  stencil_matvec_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)k, (const T*)u, (T*)out, nx, ny, nz);
+__global__ void __launch_bounds__(kThreads, 4)
+stencil27_kernel(const Interior<T> ci, const T* __restrict__ coef,
+                 const T* __restrict__ u, T* __restrict__ out, int nx,
+                 int ny, int nz, int tiles_y, int tiles_z,
+                 long long n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the face blocks come first, so that they run beside the tiles
+  const long long face_blocks = gridDim.x - n_tiles;
+  if ((long long)blockIdx.x >= face_blocks) {
+    // ---- an interior tile ----
+    T* s = reinterpret_cast<T*>(smem);  // [SX][SY][SZ * 3]
+    const long long tile = blockIdx.x - face_blocks;
+    const int z0 = 1 + (int)(tile % tiles_z) * TZ;
+    const int y0 = 1 + (int)(tile / tiles_z % tiles_y) * TY;
+    const int x0 = 1 + (int)(tile / tiles_z / tiles_y) * TX;
+    // stage u[x0-1 .. x0+TX, y0-1 .. y0+TY, z0-1 .. z0+TZ, :], zeros outside
+    // the grid: a warp copies one line of SZ nodes (SZ * 3 contiguous
+    // values) at a time with cp.async, which issues every copy of the
+    // thread before any arrives and passes nothing through registers
+    for (int line = threadIdx.x / 32; line < SX * SY; line += kThreads / 32) {
+      const int gx = x0 - 1 + line / SY, gy = y0 - 1 + line % SY;
+      const bool row_in = gx < nx && gy < ny;
+      const T* src = u + (((long long)gx * ny + gy) * nz + z0 - 1) * 3;
+      T* dst = s + line * (SZ * 3);
+      for (int r = threadIdx.x % 32; r < SZ * 3; r += 32) {
+        const bool in = row_in && z0 - 1 + r / 3 < nz;
+        __pipeline_memcpy_async(dst + r, in ? src + r : u, sizeof(T),
+                                in ? 0 : sizeof(T));
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const int ty = threadIdx.x / TZ, tz = threadIdx.x % TZ;
+    const int gy = y0 + ty, gz = z0 + tz;
+    const bool owner = gy <= ny - 2 && gz <= nz - 2;
+    // output i is complete after plane i + 2 and is stored then, so at most
+    // three outputs' sums are live
+    T acc[TX][3];
+#pragma unroll
+    for (int i = 0; i < TX; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0;
+#pragma unroll
+    for (int j = 0; j < SX; ++j) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          const T* sp = s + (j * SY + ty + dy) * (SZ * 3) + (tz + dz) * 3;
+          const T v0 = sp[0], v1 = sp[1], v2 = sp[2];
+#pragma unroll
+          for (int ox = -1; ox <= 1; ++ox) {
+            const int i = j - 1 - ox;  // the output plane this offset feeds
+            if (i < 0 || i >= TX) continue;
+            const int o = (9 * (ox + 1) + 3 * dy + dz) * 9;
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              acc[i][p] += ci.c[o + 3 * p] * v0;
+              acc[i][p] += ci.c[o + 3 * p + 1] * v1;
+              acc[i][p] += ci.c[o + 3 * p + 2] * v2;
+            }
+          }
+        }
+      }
+      const int i = j - 2;
+      if (i >= 0 && owner && x0 + i <= nx - 2) {
+        T* op = out + (((long long)(x0 + i) * ny + gy) * nz + gz) * 3;
+        op[0] = acc[i][0];
+        op[1] = acc[i][1];
+        op[2] = acc[i][2];
+      }
+    }
+    return;
+  }
+  // ---- a face node ----
+  long long f = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int sy = ny == 1 ? 1 : 2, sz = nz == 1 ? 1 : 2;
+  const long long yz = (long long)ny * nz;
+  const long long fx = (nx == 1 ? 1 : 2) * yz;
+  const long long fy = (long long)(nx > 2 ? nx - 2 : 0) * sy * nz;
+  const long long fz =
+      (long long)(nx > 2 ? nx - 2 : 0) * (ny > 2 ? ny - 2 : 0) * sz;
+  int ix, iy, iz;
+  if (f < fx) {
+    ix = f < yz ? 0 : nx - 1;
+    iy = (int)(f % yz / nz);
+    iz = (int)(f % nz);
+  } else if ((f -= fx) < fy) {
+    const long long per = (long long)sy * nz;
+    ix = 1 + (int)(f / per);
+    iy = f % per < nz ? 0 : ny - 1;
+    iz = (int)(f % nz);
+  } else if ((f -= fy) < fz) {
+    const long long per = (long long)(ny - 2) * sz;
+    ix = 1 + (int)(f / per);
+    iy = 1 + (int)(f % per / sz);
+    iz = f % sz ? nz - 1 : 0;
+  } else {
+    return;
+  }
+  const T* cc = coef + (9 * axis_class(ix, nx) + 3 * axis_class(iy, ny)
+                        + axis_class(iz, nz)) * 243;
+  T a0 = 0, a1 = 0, a2 = 0;
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    // a neighbour outside the grid has coefficients 0; its load is clamped
+    // into the grid and its values replaced by 0, without a branch, so that
+    // the loads of all 27 neighbours can be in flight together
+    const int jx = ix + o / 9 - 1, jy = iy + o / 3 % 3 - 1,
+              jz = iz + o % 3 - 1;
+    const bool in = jx >= 0 && jx < nx && jy >= 0 && jy < ny && jz >= 0 &&
+                    jz < nz;
+    const T* up = u + (((long long)min(max(jx, 0), nx - 1) * ny +
+                        min(max(jy, 0), ny - 1)) * nz +
+                       min(max(jz, 0), nz - 1)) * 3;
+    const T v0 = in ? __ldg(up) : T(0), v1 = in ? __ldg(up + 1) : T(0),
+            v2 = in ? __ldg(up + 2) : T(0);
+    const T* k = cc + o * 9;
+    a0 += __ldg(k) * v0;
+    a0 += __ldg(k + 1) * v1;
+    a0 += __ldg(k + 2) * v2;
+    a1 += __ldg(k + 3) * v0;
+    a1 += __ldg(k + 4) * v1;
+    a1 += __ldg(k + 5) * v2;
+    a2 += __ldg(k + 6) * v0;
+    a2 += __ldg(k + 7) * v1;
+    a2 += __ldg(k + 8) * v2;
+  }
+  T* op = out + (((long long)ix * ny + iy) * nz + iz) * 3;
+  op[0] = a0;
+  op[1] = a1;
+  op[2] = a2;
+}
+
+int tiles(int n, int t) { return n > 2 ? (n - 2 + t - 1) / t : 0; }
+
+template <typename T>
+int launch(const void* interior, const void* coef, const void* u, void* out,
+           int nx, int ny, int nz, void* stream) {
+  Interior<T> ci;
+  std::memcpy(ci.c, interior, sizeof(ci.c));
+  const int tiles_y = tiles(ny, TY), tiles_z = tiles(nz, TZ);
+  const long long n_tiles = (long long)tiles(nx, TX) * tiles_y * tiles_z;
+  // boundary nodes: as counted by the face blocks
+  const long long yz = (long long)ny * nz;
+  const long long faces =
+      (nx == 1 ? 1 : 2) * yz +
+      (long long)(nx > 2 ? nx - 2 : 0) * (ny == 1 ? 1 : 2) * nz +
+      (long long)(nx > 2 ? nx - 2 : 0) * (ny > 2 ? ny - 2 : 0) *
+          (nz == 1 ? 1 : 2);
+  const long long blocks = n_tiles + (faces + kThreads - 1) / kThreads;
+  stencil27_kernel<T><<<(unsigned)blocks, kThreads, kStaged * sizeof(T),
+                        (cudaStream_t)stream>>>(
+      ci, (const T*)coef, (const T*)u, (T*)out, nx, ny, nz, tiles_y, tiles_z,
+      n_tiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int stencil_matvec_f64(const void* k, const void* u, void* out,
-                                  int nx, int ny, int nz, void* stream) {
-  return launch<double>(k, u, out, nx, ny, nz, stream);
+extern "C" int stencil_matvec_f64(const void* interior, const void* coef,
+                                  const void* u, void* out, int nx, int ny,
+                                  int nz, void* stream) {
+  return launch<double>(interior, coef, u, out, nx, ny, nz, stream);
 }
 
-extern "C" int stencil_matvec_f32(const void* k, const void* u, void* out,
-                                  int nx, int ny, int nz, void* stream) {
-  return launch<float>(k, u, out, nx, ny, nz, stream);
+extern "C" int stencil_matvec_f32(const void* interior, const void* coef,
+                                  const void* u, void* out, int nx, int ny,
+                                  int nz, void* stream) {
+  return launch<float>(interior, coef, u, out, nx, ny, nz, stream);
 }

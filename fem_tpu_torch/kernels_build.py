@@ -32,14 +32,16 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "hex8_stiffness_f64": [_P, _P, _P, _P, ctypes.c_longlong, _P],
     "hex8_stiffness_f32": [_P, _P, _P, _P, ctypes.c_longlong, _P],
-    "stencil_matvec_f64": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # (interior coefficients on the host, class tables, u, out, nx, ny, nz)
+    "stencil_matvec_f64": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P],
-    "stencil_matvec_f32": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "stencil_matvec_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P],
-    "ell_matvec_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, _P],
-    "ell_matvec_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, _P],
+    # (indptr, indices, data, x, out, n rows, lanes)
+    "csr_matvec_f64": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       _P],
+    "csr_matvec_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                       _P],
 }
 
 

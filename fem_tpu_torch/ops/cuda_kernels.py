@@ -6,20 +6,27 @@ checked against on the card), the wrapper, and a launch count.
 
   K1 hex8_stiffness   csrc/hex8_stiffness.cu  replaces hex8_stiffness_pallas
   K2 stencil_matvec   csrc/stencil_matvec.cu  replaces stencil_matvec_pallas
-  K3 ell_matvec       csrc/ell_matvec.cu      replaces ell_matvec_pallas
+  K3 csr_matvec       csrc/csr_matvec.cu      replaces ell_matvec_pallas
 
 A wrapper given a CPU tensor returns the plain version. Given a CUDA tensor
 it launches the kernel (built at first use by `fem_tpu_torch.kernels_build`)
 on the current stream or raises; there is no fallback. `launches[name]` is
-incremented once per kernel launch and nowhere else.
+incremented once per kernel launch and nowhere else. The wrappers sit on
+launch-bound solver loops, so their checks format a message only when they
+fail.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fem_tpu_torch import kernels_build
 from fem_tpu_torch.ops import elements
 
 # Grid-index corner offsets matching the element node ordering of meshgen's
@@ -33,7 +40,7 @@ HEX_OFFSETS = (
 )
 QUAD_OFFSETS = ((0, 0), (0, 1), (1, 1), (1, 0))
 
-launches = {"hex8_stiffness": 0, "stencil_matvec": 0, "ell_matvec": 0}
+launches = {"hex8_stiffness": 0, "stencil_matvec": 0, "csr_matvec": 0}
 
 
 def reset_launches() -> None:
@@ -41,13 +48,23 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, *args) -> None:
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args))
 
 
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
+def _launch(name: str, like, *args) -> None:
+    """Launch C entry point `name_f64` or `name_f32` (by like's dtype) on
+    the current stream of like's device."""
+    index = like.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(name, like, *args)
+    fn = getattr(kernels_build.library(), f"{name}_{_float_suffix(like.dtype)}")
+    # the private accessor skips the Stream object that
+    # torch.cuda.current_stream builds, on paths that launch hundreds of
+    # kernels per CG iteration
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launches[name] += 1
@@ -80,28 +97,23 @@ def hex8_stiffness(ecoords_l, lam, mu):
     """K1 wrapper: same contract as hex8_stiffness_plain."""
     if ecoords_l.device.type == "cpu":
         return hex8_stiffness_plain(ecoords_l, lam, mu)
-    _check(ecoords_l.is_cuda, f"unsupported device {ecoords_l.device}")
-    suffix = _float_suffix(ecoords_l.dtype)
+    _check(ecoords_l.is_cuda, "unsupported device {}", ecoords_l.device)
     ne = ecoords_l.shape[-1] if ecoords_l.dim() == 3 else -1
-    _check(ecoords_l.shape == (3, 8, ne), f"ecoords_l must be (3, 8, ne), got "
-           f"{tuple(ecoords_l.shape)}")
+    _check(ecoords_l.shape == (3, 8, ne), "ecoords_l must be (3, 8, ne), got "
+           "{}", tuple(ecoords_l.shape))
     for name, t in (("lam", lam), ("mu", mu)):
-        _check(t.shape == (ne,), f"{name} must be ({ne},), got {tuple(t.shape)}")
+        _check(t.shape == (ne,), "{} must be ({},), got {}", name, ne,
+               tuple(t.shape))
         _check(t.dtype == ecoords_l.dtype and t.device == ecoords_l.device,
-               f"{name} must match ecoords_l's dtype and device")
+               "{} must match ecoords_l's dtype and device", name)
     for t in (ecoords_l, lam, mu):
         _check(t.is_contiguous(), "K1 inputs must be contiguous")
     out = torch.empty((24, 24, ne), dtype=ecoords_l.dtype,
                       device=ecoords_l.device)
     if ne == 0:
         return out
-    from fem_tpu_torch import kernels_build
-
-    fn = getattr(kernels_build.library(), f"hex8_stiffness_{suffix}")
-    with torch.cuda.device(ecoords_l.device):
-        _launch("hex8_stiffness", fn, ecoords_l.data_ptr(), lam.data_ptr(),
-                mu.data_ptr(), out.data_ptr(), ne,
-                torch.cuda.current_stream().cuda_stream)
+    _launch("hex8_stiffness", ecoords_l, ecoords_l.data_ptr(), lam.data_ptr(),
+            mu.data_ptr(), out.data_ptr(), ne)
     return out
 
 
@@ -125,15 +137,16 @@ def _cell_mask(shape, off, like):
 
 
 def stencil_matvec_plain(k_ref, u, shape):
-    """Plain form of K2 (the semantics of fem_tpu's structured._planes_core)
-    for 2D or 3D node grids:
+    """The per-corner masked form of K.u (the semantics of fem_tpu's
+    structured._planes_core) for 2D or 3D node grids:
 
         out_p[n] = sum_a M_a[n] sum_{b,q} k[a,p,b,q] u_q[n - off_a + off_b]
 
     k_ref: (nn*pdim, nn*pdim) scalar-material element stiffness; u: (ndof,)
     node-interleaved over the node grid `shape`; returns (ndof,). Each shifted
     read is a slice of a zero-padded component-planes tensor; M_a masks the
-    corners whose cell does not exist.
+    corners whose cell does not exist. The reference K2 is held against, and
+    the operator of 2D grids.
     """
     shape = tuple(int(n) for n in shape)
     pdim = len(shape)
@@ -155,81 +168,169 @@ def stencil_matvec_plain(k_ref, u, shape):
     return out.movedim(0, -1).reshape(-1)
 
 
-def stencil_matvec(k_ref, u, shape):
-    """K2 wrapper for 3D node grids: same contract as stencil_matvec_plain."""
-    if u.device.type == "cpu":
-        return stencil_matvec_plain(k_ref, u, shape)
-    _check(u.is_cuda, f"unsupported device {u.device}")
-    suffix = _float_suffix(u.dtype)
-    _check(len(shape) == 3, f"K2 takes a 3D node grid, got shape {shape}")
-    nx, ny, nz = (int(n) for n in shape)
-    _check(min(nx, ny, nz) >= 1, f"empty node grid {shape}")
-    _check(u.shape == (nx * ny * nz * 3,),
-           f"u must be ({nx * ny * nz * 3},), got {tuple(u.shape)}")
-    _check(k_ref.shape == (24, 24), f"k_ref must be (24, 24), got "
-           f"{tuple(k_ref.shape)}")
-    _check(k_ref.dtype == u.dtype and k_ref.device == u.device,
-           "k_ref must match u's dtype and device")
-    _check(u.is_contiguous() and k_ref.is_contiguous(),
-           "K2 inputs must be contiguous")
-    out = torch.empty_like(u)
-    from fem_tpu_torch import kernels_build
+# the 27 node offsets o of the collapsed stencil, o = 9 (ox+1) + 3 (oy+1) +
+# (oz+1) (fem_tpu's structured._pair_tables order)
+STENCIL_OFFSETS = tuple(itertools.product((-1, 0, 1), repeat=3))
 
-    fn = getattr(kernels_build.library(), f"stencil_matvec_{suffix}")
-    with torch.cuda.device(u.device):
-        _launch("stencil_matvec", fn, k_ref.data_ptr(), u.data_ptr(),
-                out.data_ptr(), nx, ny, nz,
-                torch.cuda.current_stream().cuda_stream)
+
+@dataclasses.dataclass(frozen=True)
+class StencilTables:
+    """What K2 reads for one operator: coef[c, o, p, q] for the 27 node
+    classes c = 9 cx + 3 cy + cz (on each axis 0 at the first node, 2 at the
+    last, 1 between) and the 27 offsets o, such that
+
+        out_p[n] = sum_{o, q} coef[class(n), o, p, q] u_q[n + o].
+
+    coef[13] is the interior stencil; `interior` is a copy of it on the CPU,
+    which the kernel takes by value."""
+
+    coef: torch.Tensor  # (27, 27, 3, 3) on the operator's device and dtype
+    interior: torch.Tensor  # (243,) coef[13] on the CPU
+    shape: Tuple[int, int, int]
+
+
+def stencil_tables(k_ref, shape) -> StencilTables:
+    """K2's tables for a (24, 24) scalar-material k_ref on the 3D node grid
+    `shape`, built in float64 on the CPU and stored in k_ref's dtype on its
+    device. The cell at node - off_a exists, along one axis, for both corner
+    bits at an interior node, for bit 0 only at the first node and bit 1
+    only at the last; an axis of one node has no cell. So a class's
+    coefficient for offset o sums k[a, p, b, q] over the corners a whose
+    cell exists there, b the corner at off_a + o (fem_tpu's csum for the
+    interior class)."""
+    shape = tuple(int(n) for n in shape)
+    k = k_ref.detach().to("cpu", torch.float64).reshape(8, 3, 8, 3)
+    # [axis][class, corner bit]: does the cell at node - bit exist
+    masks = [torch.tensor([[float(n >= 2), 0.0], [1.0, 1.0], [0.0, 1.0]],
+                          dtype=torch.float64) for n in shape]
+    coef = torch.zeros((27, 27, 3, 3), dtype=torch.float64)
+    for a, oa in enumerate(HEX_OFFSETS):
+        m = (masks[0][:, oa[0], None, None] * masks[1][None, :, oa[1], None]
+             * masks[2][None, None, :, oa[2]]).reshape(27, 1, 1)
+        for b, ob in enumerate(HEX_OFFSETS):
+            o = 9 * (ob[0] - oa[0] + 1) + 3 * (ob[1] - oa[1] + 1) + (
+                ob[2] - oa[2] + 1)
+            coef[:, o] += m * k[a, :, b, :]
+    coef = coef.to(k_ref.dtype)
+    return StencilTables(coef=coef.to(k_ref.device),
+                         interior=coef[13].reshape(-1).contiguous(),
+                         shape=shape)
+
+
+def _node_classes(shape, device):
+    """(*shape) long tensor of the node classes of StencilTables."""
+    cls = []
+    for n in shape:
+        c = torch.ones(n, dtype=torch.long, device=device)
+        c[0] = 0
+        if n >= 2:
+            c[-1] = 2
+        cls.append(c)
+    return (9 * cls[0][:, None, None] + 3 * cls[1][None, :, None]
+            + cls[2][None, None, :])
+
+
+def stencil27_plain(t: StencilTables, u):
+    """Plain form of K2: the interior row of the tables applied to every
+    node, one shifted copy of the zero-padded u at a time; then the boundary
+    nodes recomputed from their 27 gathered neighbours with their class's
+    row. u: (ndof,) node-interleaved over t.shape; returns (ndof,)."""
+    nx, ny, nz = shape = t.shape
+    U = F.pad(u.reshape(*shape, 3).movedim(-1, 0), [1, 1] * 3)
+    out = None
+    for o, (ox, oy, oz) in enumerate(STENCIL_OFFSETS):
+        term = torch.tensordot(t.coef[13, o], U[:, 1 + ox:1 + ox + nx,
+                                                1 + oy:1 + oy + ny,
+                                                1 + oz:1 + oz + nz], dims=1)
+        out = term if out is None else out.add_(term)
+    cls = _node_classes(shape, u.device).reshape(-1)
+    bnd = torch.nonzero(cls != 13).squeeze(1)
+    # flat indices of the boundary nodes' 27 neighbours in the padded grid
+    sy, sz = ny + 2, nz + 2
+    base = ((bnd // (ny * nz) + 1) * sy + bnd // nz % ny + 1) * sz + (
+        bnd % nz + 1)
+    delta = torch.tensor([(ox * sy + oy) * sz + oz
+                          for ox, oy, oz in STENCIL_OFFSETS], device=u.device)
+    nbr = U.reshape(3, -1)[:, base[:, None] + delta]  # (3, boundary, 27)
+    # every class's row at these nodes, then each node's own class
+    rows = torch.einsum("copq,qbo->bcp", t.coef, nbr)
+    out = out.reshape(3, -1)
+    out[:, bnd] = rows[torch.arange(bnd.shape[0], device=u.device),
+                       cls[bnd]].T
+    return out.T.reshape(-1)
+
+
+def stencil_matvec(t: StencilTables, u):
+    """K2 wrapper for 3D node grids: same contract as stencil27_plain."""
+    if not u.is_cuda:
+        _check(u.device.type == "cpu", "unsupported device {}", u.device)
+        return stencil27_plain(t, u)
+    nx, ny, nz = t.shape
+    _check(u.dim() == 1 and u.shape[0] == nx * ny * nz * 3
+           and u.is_contiguous(), "u must be a contiguous ({},) vector, got "
+           "{}", nx * ny * nz * 3, tuple(u.shape))
+    _check(t.coef.dtype == u.dtype == t.interior.dtype
+           and t.coef.get_device() == u.get_device()
+           and not t.interior.is_cuda,
+           "the tables must match u's dtype and device")
+    out = torch.empty_like(u)
+    _launch("stencil_matvec", u, t.interior.data_ptr(), t.coef.data_ptr(),
+            u.data_ptr(), out.data_ptr(), nx, ny, nz)
     return out
 
 
 # --------------------------------------------------------------------------
-# K3: ELL sparse matrix-vector product
+# K3: CSR sparse matrix-vector product
 # --------------------------------------------------------------------------
 
 
-def ell_matvec_plain(vals, cols, x):
-    """Plain form of K3 on the column-major (w, n) ELL layout:
-    out[i] = sum_k vals[k, i] * x[cols[k, i]]; padded slots (val 0, col 0)
-    give 0. vals: (w, n) float, cols: (w, n) int32, x: (nx,) -> (n,)."""
-    return (vals * x[cols]).sum(0)
-
-
-def ell_lanes(w: int) -> int:
-    """Threads sharing one row in K3: the largest power of two <= 32 with at
-    least 16 slots per thread (1 for rows narrower than 32 slots)."""
+def csr_lanes(n_rows: int, nnz: int) -> int:
+    """Threads sharing one row in K3: the smallest power of two that is at
+    least half the mean row length, at most 32 (on the H100, 8 for the
+    55^3 SA-AMG prolongation's ~15 nonzeros per row, 32 for the restriction
+    and the assembled operator)."""
+    mean = nnz / max(n_rows, 1)
     lanes = 1
-    while lanes < 32 and 32 * lanes <= w:
+    while lanes < 32 and 2 * lanes < mean:
         lanes *= 2
     return lanes
 
 
-def ell_matvec(vals, cols, x):
-    """K3 wrapper: same contract as ell_matvec_plain."""
-    if x.device.type == "cpu":
-        return ell_matvec_plain(vals, cols, x)
-    _check(x.is_cuda, f"unsupported device {x.device}")
-    suffix = _float_suffix(x.dtype)
-    _check(vals.dim() == 2 and cols.shape == vals.shape,
-           f"vals and cols must be (w, n) alike, got {tuple(vals.shape)} and "
-           f"{tuple(cols.shape)}")
-    _check(x.dim() == 1, f"x must be 1-D, got {tuple(x.shape)}")
-    _check(vals.dtype == x.dtype and vals.device == x.device,
-           "vals must match x's dtype and device")
-    _check(cols.dtype == torch.int32 and cols.device == x.device,
-           "cols must be int32 on x's device")
-    for t in (vals, cols, x):
-        _check(t.is_contiguous(), "K3 inputs must be contiguous")
-    w, n = vals.shape
+def csr_matvec_plain(indptr, indices, data, x):
+    """Plain form of K3: out[i] = sum_k data[k] * x[indices[k]] over
+    indptr[i] <= k < indptr[i + 1]. indptr: (n + 1,) int64, indices: (nnz,)
+    int32, data: (nnz,) float, x: (ncols,) -> (n,)."""
+    n = indptr.shape[0] - 1
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device),
+                                   indptr.diff())
+    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(
+        0, rows, data * x[indices])
+
+
+def csr_matvec(indptr, indices, data, x, lanes: int):
+    """K3 wrapper: same contract as csr_matvec_plain; `lanes` threads share a
+    row (csr_lanes)."""
+    if not x.is_cuda:
+        _check(x.device.type == "cpu", "unsupported device {}", x.device)
+        return csr_matvec_plain(indptr, indices, data, x)
+    index = x.get_device()
+    _check(x.dim() == 1 and data.dtype == x.dtype
+           and data.get_device() == index,
+           "x must be 1-D and data must match its dtype and device")
+    _check(indptr.dtype == torch.int64 and indptr.dim() == 1
+           and indices.dtype == torch.int32 and indices.shape == data.shape
+           and indptr.get_device() == index == indices.get_device(),
+           "indptr must be int64 and indices int32 on x's device, indices "
+           "like data")
+    _check(x.is_contiguous() and data.is_contiguous()
+           and indices.is_contiguous() and indptr.is_contiguous(),
+           "K3 inputs must be contiguous")
+    _check(lanes in (1, 2, 4, 8, 16, 32), "lanes must be a power of two "
+           "<= 32, got {}", lanes)
+    n = indptr.shape[0] - 1
     out = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    _check(w == 0 or x.shape[0] > 0, "x is empty but the table has slots")
-    from fem_tpu_torch import kernels_build
-
-    fn = getattr(kernels_build.library(), f"ell_matvec_{suffix}")
-    with torch.cuda.device(x.device):
-        _launch("ell_matvec", fn, vals.data_ptr(), cols.data_ptr(),
-                x.data_ptr(), out.data_ptr(), n, w, ell_lanes(w),
-                torch.cuda.current_stream().cuda_stream)
+    _launch("csr_matvec", x, indptr.data_ptr(), indices.data_ptr(),
+            data.data_ptr(), x.data_ptr(), out.data_ptr(), n, lanes)
     return out

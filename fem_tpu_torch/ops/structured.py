@@ -8,10 +8,12 @@ materials use the linearity of k_e in the Lame parameters:
 k_e = lam_e K_lam + mu_e K_mu.
 
 One schedule per operator kind:
-  - 3D, scalar material: cuda_kernels.stencil_matvec (kernel K2 on CUDA
-    tensors; on CPU tensors its plain form, the semantics of fem_tpu's
-    _planes_core);
-  - 2D, scalar material: that plain form, in torch on every device;
+  - 3D, scalar material: cuda_kernels.stencil_matvec (kernel K2, the
+    collapsed 27-point stencil with exact boundary classes, on CUDA tensors;
+    on CPU tensors its plain form) on tables built once per operator;
+  - 2D, scalar material: the per-corner masked form of fem_tpu's
+    _planes_core (cuda_kernels.stencil_matvec_plain), in torch on every
+    device;
   - per-cell lam/mu fields: the cell form (corner gather, two products with
     K_lam and K_mu, corner scatter-add), in torch on every device.
 """
@@ -19,7 +21,7 @@ One schedule per operator kind:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,8 @@ class StencilOperator:
     k_lam/k_mu: (ndof_e, ndof_e) reference stiffness split by Lame parameter.
     lam/mu: 0-dim tensors, or (*cells,) fields for heterogeneous material.
     shape: node-grid shape (nnx, nny[, nnz]).
+    Derived once, here and in every dataclasses.replace copy, for scalar
+    materials: k_ref = lam * k_lam + mu * k_mu, and in 3D K2's tables.
     """
 
     k_lam: torch.Tensor
@@ -46,6 +50,18 @@ class StencilOperator:
     lam: torch.Tensor
     mu: torch.Tensor
     shape: Tuple[int, ...]
+    k_ref: Optional[torch.Tensor] = dataclasses.field(init=False, repr=False)
+    tables: Optional[cuda_kernels.StencilTables] = dataclasses.field(
+        init=False, repr=False)
+
+    def __post_init__(self):
+        k_ref = tables = None
+        if self.lam.dim() == 0:
+            k_ref = self.lam * self.k_lam + self.mu * self.k_mu
+            if len(self.shape) == 3:
+                tables = cuda_kernels.stencil_tables(k_ref, self.shape)
+        object.__setattr__(self, "k_ref", k_ref)
+        object.__setattr__(self, "tables", tables)
 
     @property
     def pdim(self) -> int:
@@ -58,11 +74,6 @@ class StencilOperator:
     @property
     def offsets(self):
         return HEX_OFFSETS if self.pdim == 3 else QUAD_OFFSETS
-
-    @property
-    def k_ref(self) -> torch.Tensor:
-        """lam * k_lam + mu * k_mu (scalar materials)."""
-        return self.lam * self.k_lam + self.mu * self.k_mu
 
     def astype(self, dtype) -> "StencilOperator":
         return dataclasses.replace(
@@ -201,7 +212,7 @@ def matvec(op: StencilOperator, u):
     if op.lam.dim() != 0:
         return _cell_form(op, u.reshape(*op.shape, op.pdim)).reshape(-1)
     if op.pdim == 3:
-        return cuda_kernels.stencil_matvec(op.k_ref, u, op.shape)
+        return cuda_kernels.stencil_matvec(op.tables, u)
     return cuda_kernels.stencil_matvec_plain(op.k_ref, u, op.shape)
 
 

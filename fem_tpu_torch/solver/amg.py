@@ -11,10 +11,10 @@ Division of labour:
     from kernel K1 on a CUDA device), strength graph, greedy aggregation,
     per-aggregate rank-revealing QR of the rigid-body modes, prolongator
     smoothing, Galerkin triple products, power iteration. Every sparse table
-    the cycle reads is then laid out once as a column-major (w, n) ELL.
-  - The CYCLE on the device: Chebyshev smoothing, ELL products through
-    kernel K3 (`cuda_kernels.ell_matvec`) for the prolongation P, the
-    restriction R = P^T (an ELL over coarse rows) and the mid-level
+    the cycle reads is then laid out once as a CSR table (`Csr`).
+  - The CYCLE on the device: Chebyshev smoothing, sparse products through
+    kernel K3 (`cuda_kernels.csr_matvec`) for the prolongation P, the
+    restriction R = P^T (a CSR over coarse rows) and the mid-level
     operators, and a dense coarsest inverse (Cholesky on the device).
 
 The preconditioner is symmetric positive definite (same-degree Chebyshev
@@ -281,55 +281,60 @@ def _dense_inv(Kc, device, dtype=torch.float64):
     return (0.5 * (X + X.T)).to(dtype)
 
 
-def _to_ell(A, dtype=np.float64):
-    """CSR -> padded column-major ELL: vals (w, n), cols (w, n) int32, the
-    layout kernel K3 reads. Padded slots hold val 0 and col 0."""
-    n = A.shape[0]
-    counts = np.diff(A.indptr)
-    w = int(counts.max()) if n else 0
-    vals = np.zeros((w, n), dtype=dtype)
-    cols = np.zeros((w, n), dtype=np.int32)
-    pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
-    rows = np.repeat(np.arange(n), counts)
-    vals[pos, rows] = A.data
-    cols[pos, rows] = A.indices
-    return vals, cols
-
-
 # ---------------------------------------------------------------------------
 # Device-side hierarchy
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
-class Ell:
-    """A sparse table in K3's column-major ELL layout."""
+class Csr:
+    """A sparse table as kernel K3 reads it: CSR without padding, and the
+    number of threads that share a row, chosen from the mean row length
+    when the table is built."""
 
-    vals: torch.Tensor  # (w, n)
-    cols: torch.Tensor  # (w, n) int32
+    indptr: torch.Tensor  # (n + 1,) int64
+    indices: torch.Tensor  # (nnz,) int32
+    data: torch.Tensor  # (nnz,)
+    ncols: int
+    lanes: int
 
     @classmethod
-    def from_csr(cls, A, dtype, device) -> "Ell":
-        vals, cols = _to_ell(A.tocsr())
-        return cls(torch.as_tensor(vals, dtype=dtype, device=device),
-                   torch.as_tensor(cols, device=device))
+    def from_csr(cls, A, dtype, device) -> "Csr":
+        """From a scipy sparse matrix."""
+        A = A.tocsr()
+        return cls(torch.as_tensor(A.indptr, dtype=torch.int64, device=device),
+                   torch.as_tensor(A.indices, dtype=torch.int32, device=device),
+                   torch.as_tensor(A.data, dtype=dtype, device=device),
+                   int(A.shape[1]), cuda_kernels.csr_lanes(A.shape[0], A.nnz))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.indptr.shape[0] - 1, self.ncols
+
+    def to_scipy(self) -> sp.csr_matrix:
+        return sp.csr_matrix((self.data.cpu().numpy(),
+                              self.indices.cpu().numpy(),
+                              self.indptr.cpu().numpy()), shape=self.shape)
 
     def __call__(self, x):
-        return cuda_kernels.ell_matvec(self.vals, self.cols, x)
+        if x.shape != (self.ncols,):
+            raise ValueError(f"x must be ({self.ncols},), got {tuple(x.shape)}")
+        return cuda_kernels.csr_matvec(self.indptr, self.indices, self.data, x,
+                                       self.lanes)
 
 
 @dataclasses.dataclass(frozen=True)
 class AMGLevel:
     # the level's operator on mid levels: a densified (n, n) matrix when
-    # n <= dense_level_max, else an ELL. None on level 0 (the caller's fine
-    # matvec is used there) and on the coarsest (its dense inverse is)
-    op: Optional[Ell]
+    # n <= dense_level_max, else a CSR table. None on level 0 (the caller's
+    # fine matvec is used there) and on the coarsest (its dense inverse is)
+    op: Optional[Csr]
     dense_op: Optional[torch.Tensor]
     dinv: torch.Tensor  # (n,) 1/diag (1.0 on constrained dofs)
     # prolongation P (fine <- coarse, over fine rows) and restriction
     # R = P^T (over coarse rows); None on the coarsest level
-    P: Optional[Ell]
-    R: Optional[Ell]
+    P: Optional[Csr]
+    R: Optional[Csr]
     # Chebyshev interval [theta - delta, theta + delta] of D^-1 A
     theta: float
     delta: float
@@ -354,8 +359,8 @@ def build(
     runs on the host; the hierarchy's tensors live on the system's device in
     its dtype. Coarsening stops at `coarse_max` DOFs (the coarsest level is
     inverted densely); mid levels of at most `dense_level_max` DOFs are
-    stored dense, larger ones as ELL. `A` may be a pre-assembled scipy CSR
-    (BCs NOT yet eliminated) to skip re-assembly."""
+    stored dense, larger ones as CSR tables. `A` may be a pre-assembled
+    scipy CSR (BCs NOT yet eliminated) to skip re-assembly."""
     dtype, device = system.dtype, system.device
     if A is None:
         A = assemble_csr(system)
@@ -406,11 +411,11 @@ def build(
         if levels and level_A.shape[0] <= dense_level_max:
             dense_op = dev(level_A.toarray())
         elif levels:
-            op = Ell.from_csr(level_A, dtype, device)
+            op = Csr.from_csr(level_A, dtype, device)
         lb = lam_max / LB_FRAC
         levels.append(AMGLevel(
             op=op, dense_op=dense_op, dinv=dev(dinv),
-            P=Ell.from_csr(P, dtype, device), R=Ell.from_csr(R, dtype, device),
+            P=Csr.from_csr(P, dtype, device), R=Csr.from_csr(R, dtype, device),
             theta=float(0.5 * (lam_max + lb)),
             delta=float(0.5 * (lam_max - lb)),
             n_coarse=int(P.shape[1]),
@@ -437,6 +442,18 @@ def build(
                       degree=CHEBYSHEV_DEGREE)
 
 
+def ell_to_csr(vals_nw, cols_nw, ncols) -> sp.csr_matrix:
+    """fem_tpu's row-major (n, w) ELL table as a scipy CSR matrix; its
+    padded slots (value 0) are dropped."""
+    vals = np.asarray(vals_nw)
+    n, w = vals.shape
+    A = sp.csr_matrix((vals.reshape(-1), (np.repeat(np.arange(n), w),
+                                          np.asarray(cols_nw).reshape(-1))),
+                      shape=(n, ncols))
+    A.eliminate_zeros()
+    return A
+
+
 def from_reference(h, dtype=torch.float64, device="cpu") -> AMGPrecond:
     """The port's hierarchy from `fem_tpu.solver.amg.AMGPrecond` `h` (any
     array type numpy can read): the same levels, operators, transfers,
@@ -447,11 +464,8 @@ def from_reference(h, dtype=torch.float64, device="cpu") -> AMGPrecond:
     def dev(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
-    def ell(vals_nw, cols_nw):
-        return Ell(dev(np.ascontiguousarray(np.asarray(vals_nw).T)),
-                   torch.as_tensor(np.ascontiguousarray(
-                       np.asarray(cols_nw).T), dtype=torch.int32,
-                       device=device))
+    def csr(vals_nw, cols_nw, ncols):
+        return Csr.from_csr(ell_to_csr(vals_nw, cols_nw, ncols), dtype, device)
 
     levels = []
     for lv in h.levels:
@@ -459,15 +473,16 @@ def from_reference(h, dtype=torch.float64, device="cpu") -> AMGPrecond:
         ev = np.asarray(lv.ell_vals)
         P = R = None
         if lv.n_coarse:
-            P = ell(lv.p_vals, lv.p_cols)
+            P = csr(lv.p_vals, lv.p_cols, lv.n_coarse)
             n_fine = np.asarray(lv.dinv).shape[0]
             Rt = sp.csr_matrix(
                 (np.asarray(lv.pt_vals), (np.asarray(lv.pt_coarse),
                                           np.asarray(lv.pt_fine))),
                 shape=(lv.n_coarse, n_fine))
-            R = Ell.from_csr(Rt, dtype, device)
+            R = Csr.from_csr(Rt, dtype, device)
         levels.append(AMGLevel(
-            op=ell(ev, lv.ell_cols) if ev.shape[0] and lv.n_coarse else None,
+            op=(csr(ev, lv.ell_cols, ev.shape[0])
+                if ev.shape[0] and lv.n_coarse else None),
             dense_op=dev(dense) if dense.shape[0] else None,
             dinv=dev(lv.dinv), P=P, R=R, theta=float(lv.theta),
             delta=float(lv.delta), n_coarse=int(lv.n_coarse),
@@ -483,7 +498,7 @@ def from_reference(h, dtype=torch.float64, device="cpu") -> AMGPrecond:
 
 def _lv_matvec(lv: AMGLevel, x):
     """Mid-level operator apply: a dense product on a densified level, K3 on
-    an ELL level."""
+    a CSR level."""
     if lv.dense_op is not None:
         return lv.dense_op @ x
     return lv.op(x)

@@ -1,6 +1,8 @@
 """fem_tpu_torch's SA-AMG (kernel K3's plain form, the host set-up, the
 V-cycle and SA-AMG-CG) against fem_tpu in float64, at small seeded sizes."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,23 +30,34 @@ def rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def ell_random(n, w, nx, seed, dtype=np.float64):
+def ell_random(n, w, nx, seed, dtype=np.float64, uneven=False):
     """A random (n, w) row-major ELL as fem_tpu stores it, with a few rows
-    padded (val 0, col 0) like _to_ell's."""
+    padded (val 0, col 0) like _to_ell's; uneven: each row keeps a random
+    length from 0 to w (many short rows, a few full ones)."""
     rng = np.random.default_rng(seed)
     vals = rng.standard_normal((n, w)).astype(dtype)
     cols = rng.integers(0, nx, size=(n, w)).astype(np.int32)
-    pad = rng.random((n, w)) < 0.1
+    if uneven:
+        lengths = np.minimum((rng.pareto(1.0, n) * 2).astype(int), w)
+        pad = np.arange(w)[None, :] >= lengths[:, None]
+    else:
+        pad = rng.random((n, w)) < 0.1
     vals[pad] = 0.0
     cols[pad] = 0
     return vals, cols, rng.standard_normal(nx).astype(dtype)
 
 
+def table(vals, cols, nx, device="cpu"):
+    """K3's table of a row-major ELL, as from_reference builds it."""
+    return amg.Csr.from_csr(amg.ell_to_csr(vals, cols, nx), torch.float64,
+                            device)
+
+
 def plain(vals, cols, x):
-    """K3's plain form on the column-major (w, n) copy of row-major data."""
-    return cuda_kernels.ell_matvec_plain(
-        torch.as_tensor(np.ascontiguousarray(vals.T)),
-        torch.as_tensor(np.ascontiguousarray(cols.T)), torch.as_tensor(x))
+    """K3's plain form on the CSR table of row-major ELL data."""
+    t = table(vals, cols, x.shape[0])
+    return cuda_kernels.csr_matvec_plain(t.indptr, t.indices, t.data,
+                                         torch.as_tensor(x))
 
 
 def test_k3_plain_matches_fem_tpu_ell_matvec():
@@ -59,35 +72,70 @@ def test_k3_plain_matches_fem_tpu_ell_matvec():
     assert rel(got, ref) <= 1e-12
 
 
+@pytest.mark.parametrize("w,uneven", [(0, False), (1, False), (81, False),
+                                      (700, False), (700, True)])
+def test_k3_table_and_plain_match_scipy_and_fem_tpu(w, uneven):
+    from fem_tpu.ops.pallas_kernels import ell_matvec_pallas
+
+    vals, cols, x = ell_random(300, w, 257, seed=w + uneven, uneven=uneven)
+    A = amg.ell_to_csr(vals, cols, 257)
+    t = table(vals, cols, 257)
+    assert t.shape == (300, 257) and t.data.shape == (A.nnz,)
+    # duplicate columns of a row merge; padded slots are dropped
+    assert t.data.shape[0] <= int((vals != 0).sum())
+    assert (t.to_scipy() != A).nnz == 0
+    got = plain(vals, cols, x)
+    ref = A @ x
+    if not w:
+        assert not got.any() and not ref.any()
+        return
+    assert rel(got, ref) <= 1e-12
+    assert rel(got, j_amg._ell_matvec(vals, cols, x)) <= 1e-12
+    pallas = ell_matvec_pallas(jnp.asarray(vals), jnp.asarray(cols),
+                               jnp.asarray(x), block_r=128, interpret=True)
+    assert rel(got, pallas) <= 1e-12
+
+
 @pytest.mark.parametrize("w", [0, 1, 81, 700])
 def test_k3_wrapper_on_cpu_is_plain_and_launches_nothing(w):
     vals, cols, x = ell_random(257, w, 300, seed=w)
-    args = [torch.as_tensor(np.ascontiguousarray(a.T)) for a in (vals, cols)]
+    t = table(vals, cols, 300)
     cuda_kernels.reset_launches()
-    got = cuda_kernels.ell_matvec(*args, torch.as_tensor(x))
+    got = t(torch.as_tensor(x))
     assert torch.equal(got, plain(vals, cols, x))
-    assert got.shape == (257,) and cuda_kernels.launches["ell_matvec"] == 0
-    assert 1 <= cuda_kernels.ell_lanes(w) <= 32
+    assert got.shape == (257,) and cuda_kernels.launches["csr_matvec"] == 0
+    assert t.lanes == cuda_kernels.csr_lanes(257, t.data.shape[0])
+
+
+def test_k3_lanes_follow_the_mean_row_length():
+    # the 55^3 SA-AMG tables: P ~16 nonzeros per row, R ~1,700, A ~81
+    assert [cuda_kernels.csr_lanes(n, nnz) for n, nnz in (
+        (526848, 8250000), (4848, 8250000), (526848, 40434060), (10, 0),
+        (0, 0), (100, 300))] == [8, 32, 32, 1, 1, 2]
 
 
 @pytest.mark.cuda
 def test_k3_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernel K3 has no CPU mode)")
-    for w in (0, 5, 81, 1500):
-        vals, cols, x = ell_random(5000, w, 4000, seed=w)
+    for w, uneven in ((0, False), (5, False), (81, False), (1500, False),
+                      (1500, True)):
+        vals, cols, x = ell_random(5000, w, 4000, seed=w, uneven=uneven)
+        t64 = table(vals, cols, 4000, device="cuda")
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-            v, c, xx = (torch.as_tensor(np.ascontiguousarray(a), device="cuda")
-                        for a in (vals.T, cols.T, x))
-            v, xx = v.to(dtype), xx.to(dtype)
-            before = cuda_kernels.launches["ell_matvec"]
-            got = cuda_kernels.ell_matvec(v, c, xx)
-            ref = cuda_kernels.ell_matvec_plain(v, c, xx)
-            assert cuda_kernels.launches["ell_matvec"] == before + 1
-            scale = max(float(ref.abs().max()), 1e-300)
-            assert float((got - ref).abs().max()) <= tol * scale
-            # a fixed summation order: the same bits every run
-            assert torch.equal(got, cuda_kernels.ell_matvec(v, c, xx))
+            xx = torch.as_tensor(x, device="cuda").to(dtype)
+            for lanes in (1, 2, 4, 8, 16, 32):
+                t = dataclasses.replace(t64, data=t64.data.to(dtype),
+                                        lanes=lanes)
+                before = cuda_kernels.launches["csr_matvec"]
+                got = t(xx)
+                ref = cuda_kernels.csr_matvec_plain(t.indptr, t.indices,
+                                                    t.data, xx)
+                assert cuda_kernels.launches["csr_matvec"] == before + 1
+                scale = max(float(ref.abs().max()), 1e-300)
+                assert float((got - ref).abs().max()) <= tol * scale
+                # a fixed summation order: the same bits every run
+                assert torch.equal(got, t(xx))
 
 
 @pytest.fixture(scope="module")
@@ -113,15 +161,6 @@ def hierarchies(box):
     return jh, h
 
 
-def ell_dense(e, ncols):
-    """Dense matrix of a column-major ELL table."""
-    vals, cols = np.asarray(e.vals), np.asarray(e.cols).astype(np.int64)
-    out = np.zeros((vals.shape[1], ncols))
-    rows = np.broadcast_to(np.arange(vals.shape[1]), vals.shape)
-    np.add.at(out, (rows, cols), vals)
-    return out
-
-
 def test_assemble_csr_matches_fem_tpu(box):
     _, js, s = box
     A, jA = amg.assemble_csr(s), j_amg.assemble_csr(js)
@@ -139,15 +178,28 @@ def test_amg_build_matches_fem_tpu(hierarchies):
         assert rel(lv.dinv, jlv.dinv) <= 1e-12
         n = lv.dinv.shape[0]
         if lv.n_coarse:
-            jP = ell_dense(amg.Ell(np.asarray(jlv.p_vals).T,
-                                   np.asarray(jlv.p_cols).T), lv.n_coarse)
-            assert rel(ell_dense(lv.P, lv.n_coarse), jP) <= 1e-12
-            assert rel(ell_dense(lv.R, n), jP.T) <= 1e-12
+            jP = amg.ell_to_csr(jlv.p_vals, jlv.p_cols, lv.n_coarse).toarray()
+            assert rel(lv.P.to_scipy().toarray(), jP) <= 1e-12
+            assert rel(lv.R.to_scipy().toarray(), jP.T) <= 1e-12
         if 0 < i < len(h.levels) - 1:  # Galerkin A_c of the level above
-            jA = ell_dense(amg.Ell(np.asarray(jlv.ell_vals).T,
-                                   np.asarray(jlv.ell_cols).T), n)
-            assert rel(ell_dense(lv.op, n), jA) <= 1e-12
+            jA = amg.ell_to_csr(jlv.ell_vals, jlv.ell_cols, n).toarray()
+            assert rel(lv.op.to_scipy().toarray(), jA) <= 1e-12
     assert rel(h.coarse_inv, jh.coarse_inv) <= 1e-12
+
+
+def test_from_reference_tables_match_amg_build(hierarchies):
+    """fem_tpu's hierarchy carried into K3's tables equals the port's own
+    build, table by table."""
+    jh, h = hierarchies
+    carried = amg.from_reference(jh)
+    for lv, cv in zip(h.levels, carried.levels):
+        pairs = [(lv.P, cv.P), (lv.R, cv.R)] if lv.n_coarse else []
+        if lv.op is not None:
+            pairs.append((lv.op, cv.op))
+        assert (cv.op is None) == (lv.op is None)
+        for a, b in pairs:
+            assert a.shape == b.shape and a.lanes == b.lanes
+            assert rel(b.to_scipy().toarray(), a.to_scipy().toarray()) <= 1e-12
 
 
 def masked_pair(box):

@@ -104,4 +104,4 @@ def test_structured_box_matches_fem_tpu_mg_cg():
         assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
     # CPU tensors never launch a kernel
     assert cuda_kernels.launches == {"hex8_stiffness": 0, "stencil_matvec": 0,
-                                     "ell_matvec": 0}
+                                     "csr_matvec": 0}

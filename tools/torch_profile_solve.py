@@ -10,7 +10,7 @@ on the node-permuted, jittered n^3 box (n = 55: 526,848 DOFs, the box of
 bench.bench_amg_solve); its set-up is split into assemble_csr, fused
 operator and hierarchy build (the stepper's own log line), and the fine
 matvec is timed as the fused operator against kernel K3 on the assembled
-matrix in ELL form. With --coh: the cohesive Newton path on fem_tpu's
+matrix in CSR form. With --coh: the cohesive Newton path on fem_tpu's
 benchmark strip (cohesive_interface_problem(n, n // 5), lx = 5; n = 360:
 105,412 DOFs), matrix-free Newton-Krylov with the block stencil and lattice
 GMG; the profiled "solve" is the first load step's Newton solve, from zero, to
@@ -128,23 +128,21 @@ def coh_phases(n, dev, config, log):
 
 def fine_matvec_pair(system, reps):
     """The fine operator two ways on the same vector: the fused operator
-    (the path's) and K3 on the assembled, BC-eliminated matrix in ELL."""
+    (the path's) and K3 on the assembled, BC-eliminated matrix in CSR."""
     bc = system.bc_dofs
     mask = torch.zeros(system.ndof, dtype=torch.bool, device=system.device)
     mask[bc] = True
     fop = operator.build(system)
     fused = cg.masked_operator(lambda v: operator.matvec(fop, v), mask)
     A = amg._eliminate_bcs(amg.assemble_csr(system), bc.cpu().numpy())
-    ell = amg.Ell.from_csr(A, torch.float64, system.device)
+    csr = amg.Csr.from_csr(A, torch.float64, system.device)
     x = torch.randn(system.ndof, dtype=torch.float64, device=system.device)
-    diff = float(torch.linalg.norm(fused(x) - ell(x)) / torch.linalg.norm(
-        ell(x)))
-    w, rows = ell.vals.shape
-    print(f"fine matvec, {rows} rows: fused operator "
+    diff = float(torch.linalg.norm(fused(x) - csr(x)) / torch.linalg.norm(
+        csr(x)))
+    print(f"fine matvec, {A.shape[0]} rows: fused operator "
           f"{event_ms(lambda: fused(x), reps):.4f} ms, K3 on the assembled "
-          f"ELL (w {w}, {A.nnz} nonzeros, {ell.vals.numel() / A.nnz:.3f} "
-          f"slots per nonzero) {event_ms(lambda: ell(x), reps):.4f} ms; "
-          f"rel diff {diff:.2e}")
+          f"CSR ({A.nnz} nonzeros, {csr.lanes} lanes per row) "
+          f"{event_ms(lambda: csr(x), reps):.4f} ms; rel diff {diff:.2e}")
 
 
 def main():

@@ -67,7 +67,36 @@ Phases, each of which exits non-zero when it fails:
  13. the same strip node-permuted, through the fused operator and SA-AMG
      (K3 in its transfers), its u mapped back and held against phase 12's;
      then K3 against its plain version on every P, R and CSR mid-level
-     table of that run's hierarchy (rebuilt by newton.matfree_operators).
+     table of that run's hierarchy (rebuilt by newton.matfree_operators);
+ 14. creep on the card: the Maxwell shear ramp of tests/test_viscoelastic.py
+     (closed form to 3%, the CPU run to 1e-12); the 12^3 box with expn 3 on
+     the direct and the structured MG-CG rows against the CPU (1e-9); then
+     the 80^3 box (1,594,323 DOFs) with tau = 10 steps, 4 steps through
+     structured_mg_cg with timing and a checkpoint each step: MG-CG
+     iterations (12 +- 1), each step's true relative residual of
+     F + f_creep recomputed with the per-corner form (<= 1e-8), the tip
+     deflection against the elastic run's (larger by at least 3/4 of the
+     12^3 box's increase on the CPU), a finite creep state, the phase
+     timers, the peak device memory and the launches;
+ 15. that run resumed from its step-3 checkpoint, held against the
+     uninterrupted run (u, stress and creep state to 1e-12), with each
+     checkpoint's size and write time;
+ 16. one elastic step of the 80^3 box with timing and a torch.profiler
+     trace, which must hold CUDA kernel events of K1 and K2;
+ 17. gradients through K1's autograd Function: d<W, k_e>/d(lam, mu) at
+     131,072 elements against the plain form's autograd (1e-12), the 6^3
+     box's compliance gradient in per-element E against the CPU (1e-10) and
+     central differences (1e-5), and a coordinate gradient that raises;
+     through K2's: d<W, K u>/du on the 81^3 grid against the plain form's
+     autograd (1e-12); K3 on an input that requires grad raises;
+ 18. the native parser: the reference decks parse equal, field for field,
+     to the Python parser's, and load(backend="native") equals
+     load(backend="python") block by block; load(backend="auto") calls the
+     native engine for each; the CLI with --parser native on the elastic
+     golden deck; both parsers' host times on a 200,000-quad strip deck.
+Each kernel's "launches" in the summary is the count of its main path's
+run ("launches_path": the 80^3 elastic run for K1 and K2, the 55^3 SA-AMG
+run for K3); "launches_by_path" gives every counted run's own count.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero before printing any result.
@@ -169,6 +198,529 @@ def measure(torch, label, dtype_name, kernel, plain, library, nbytes, flops,
           f"{100 * b_ms / m['cold_ms']:.1f}% of it cold), plain "
           f"{m['plain_ms']:.4f} ms, library {lib} ms", flush=True)
     return m
+
+
+def structured_box(torch, dev, problem):
+    """(System, the stencil operator the stepper builds, rel(F, u)) of a
+    structured box: rel is ||b - K u|| / ||b|| of the masked system with zero
+    BC values and load F, K applied by the per-corner plain form, not K2."""
+    from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.ops.stiffness import lame
+    from fem_tpu_torch.solver import cg
+
+    system = System(problem, torch.float64, device=dev)
+    spec = structured.detect(problem)
+    lam, mu = lame(torch.tensor(spec["E"], dtype=torch.float64),
+                   torch.tensor(spec["nu"], dtype=torch.float64))
+    op = structured.build(spec["cell_sizes"], spec["node_shape"], lam, mu,
+                          dtype=torch.float64, device=dev)
+    k_ref = op.k_ref.contiguous()
+
+    def plain_k(v):
+        return ck.stencil_matvec_plain(k_ref, v, op.shape)
+
+    mask = torch.zeros(problem.ndof, dtype=torch.bool, device=dev)
+    mask[system.bc_dofs] = True
+
+    def rel(F, u):
+        b = cg.constrained_rhs(plain_k, F, mask, torch.zeros_like(u))
+        r = b - cg.masked_operator(plain_k, mask)(u)
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b))
+
+    return system, op, rel
+
+
+# the box material of phases 7 and 14: E = 200e9, nu = 0.3; creep with
+# viscosity 10 G has the relaxation time tau = visc / G = 10 load steps
+G_BOX = 200e9 / (2.0 * 1.3)
+
+
+def creep_box(n, visc, expn, t=4.0):
+    """meshgen's n^3 unit-cube cantilever (phase 7's box) with a creeping
+    material and load steps of dt = 1 up to t."""
+    from fem_tpu_torch.io import meshgen
+
+    p = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0, E=200e9,
+                                nu=0.3, tip_load=-1e6, t=t, dt=1.0)
+    p.mats = p.mats.copy()
+    p.mats[:, 2] = visc
+    p.mats[:, 3] = expn
+    return p
+
+
+def shear_problem(E, nu, visc, gamma_total, t, dt):
+    """tests/test_viscoelastic.py's unit square in pure shear: bottom edge
+    fixed, top edge driven +x by gamma_total over [0, t], y pinned."""
+    import numpy as np
+
+    from fem_tpu_torch.models.problem import Block, Problem
+
+    coords = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    bc_vals = np.array([[gamma_total if y == 1.0 else 0.0, 0.0]
+                        for y in coords[:, 1]]).reshape(-1)
+    return Problem(
+        stype="implicit", pdim=2, t=t, dt=dt, coords=coords,
+        blocks={"qua": Block("qua", conn=np.array([[0, 1, 2, 3]], np.int32),
+                             mat=np.zeros(1, np.int32),
+                             nlmat=np.full(1, -1, np.int32),
+                             eids=np.zeros(1, np.int32))},
+        mats=np.array([[E, nu, visc, 1.0, 0.0]]),
+        coh_laws=np.zeros(0, np.int32), coh_props=np.zeros((0, 6)),
+        bc_dofs=np.arange(8, dtype=np.int32), bc_vals=bc_vals,
+        force_dofs=np.zeros((0, 2), np.int32), force_vec=np.zeros((0, 2)),
+        force_t1=np.zeros(0), force_t2=np.zeros(0),
+        trac_dofs=np.zeros((0, 2, 2), np.int32),
+        trac_nodal_vec=np.zeros((0, 2)), trac_t1=np.zeros(0),
+        trac_t2=np.zeros(0))
+
+
+def rel_max(a, b):
+    """max |a - b| / max |b| over numpy arrays or tensors."""
+    import numpy as np
+
+    a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+            for x in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase14_creep(torch, dev, n_big, ck_dir):
+    """Phase 14: creep on the card. Returns the 80^3 run's result, its
+    per-step saves, its launches and its creep state at the last step."""
+    import os
+
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.solver import stepper
+    from fem_tpu_torch.utils import checkpoint
+
+    # 14.1 the Maxwell shear ramp (expn 1): closed form to 3%, CPU to 1e-12
+    E, visc, gamma, T = 100.0, 20.0, 0.02, 2.0
+    shear = shear_problem(E, 0.0, visc, gamma, T, 0.01)
+    cfg = dict(viscoelastic=True, solver="direct", bc_mode="eliminate")
+    r = {d: stepper.run(shear, Config(device=d, **cfg)) for d in ("cuda",
+                                                                  "cpu")}
+    G = E / 2.0
+    exact = G * (gamma / T) * (visc / G) * (1.0 - np.exp(-T * G / visc))
+    got = r["cuda"].aggregate_stress[0, 2]
+    d_cpu = max(rel_max(r["cuda"].aggregate_stress,
+                        r["cpu"].aggregate_stress),
+                rel_max(r["cuda"].aggregate_u, r["cpu"].aggregate_u))
+    print(f"creep: Maxwell shear ramp, {shear.nsteps} steps on cuda: "
+          f"sigma_xy {got:.6f}, closed form {exact:.6f} "
+          f"({100 * abs(got / exact - 1):.3f}% off, tol 3%), rel diff vs "
+          f"CPU {d_cpu:.3e} (tol 1e-12)", flush=True)
+    check(abs(got - exact) <= 0.03 * abs(exact), "Maxwell ramp off by > 3%")
+    check(d_cpu <= 1e-12, f"Maxwell ramp cuda vs cpu: {d_cpu}")
+
+    # 14.2 the 12^3 box, expn 3 (tau ~ 10 steps at 1e7 Pa), on the direct
+    # and the structured MG-CG rows, on cuda against the CPU
+    box12 = creep_box(12, 10.0 * G_BOX * 1e7 ** 2, 3.0)
+    for solver, row in (("direct", "direct"), ("cg", "structured_mg_cg")):
+        r = {d: stepper.run(box12, Config(device=d, viscoelastic=True,
+                                          solver=solver))
+             for d in ("cuda", "cpu")}
+        d_u = rel_max(r["cuda"].aggregate_u, r["cpu"].aggregate_u)
+        d_s = rel_max(r["cuda"].aggregate_stress, r["cpu"].aggregate_stress)
+        print(f"creep: 12^3 box, expn 3, 4 steps, row {r['cuda'].path}: "
+              f"iterations {r['cuda'].krylov_iters}, rel diff vs CPU u "
+              f"{d_u:.3e}, stress {d_s:.3e} (tol 1e-9)", flush=True)
+        check(r["cuda"].path == row, f"12^3 creep took {r['cuda'].path}")
+        check(max(d_u, d_s) <= 1e-9, f"12^3 creep {row} cuda vs cpu")
+    # the deflection margin of 14.3, from the 12^3 box with its material on
+    # the CPU: the 80^3 box must creep by at least 3/4 of this increase
+    box12 = creep_box(12, 10.0 * G_BOX, 1.0)
+    tips = [stepper.run(box12, Config(device="cpu", viscoelastic=v))
+            .aggregate_u.reshape(-1, 3)[:, 2].min() for v in (True, False)]
+    ratio12 = tips[0] / tips[1]
+    print(f"creep: 12^3 box, tau 10 steps, expn 1, on the CPU: tip "
+          f"deflection {tips[0]:.6e} against elastic {tips[1]:.6e}, ratio "
+          f"{ratio12:.6f}", flush=True)
+
+    # 14.3 the 80^3 box through structured_mg_cg, checkpointing each step
+    big = creep_box(n_big, 10.0 * G_BOX, 1.0)
+    steps = []  # (F + f_creep, du) of each step
+    saves = []  # (path, bytes, seconds) of each checkpoint
+    setup, save = stepper._SETUP["structured_mg_cg"], checkpoint.save
+
+    def recording_setup(*args):
+        step = setup(*args)
+
+        def recorded(F, du_prev, aggregate_u, t_end):
+            inc = step(F, du_prev, aggregate_u, t_end)
+            steps.append((F, inc.du))
+            return inc
+
+        return recorded
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        saves.append((path, os.path.getsize(path), time.perf_counter() - t0))
+        return path
+
+    stepper._SETUP["structured_mg_cg"] = recording_setup
+    checkpoint.save = timed_save
+    msgs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = stepper.run(big, Config(device="cuda", viscoelastic=True,
+                                      timing=True, checkpoint_dir=ck_dir),
+                          log=msgs.append)
+        torch.cuda.synchronize()
+    finally:
+        stepper._SETUP["structured_mg_cg"] = setup
+        checkpoint.save = save
+    wall = time.perf_counter() - t0
+    launches = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(res.path == "structured_mg_cg", f"80^3 creep took {res.path}")
+    # each step's true relative residual, with the per-corner form
+    _, _, rel = structured_box(torch, dev, big)
+    rels = [rel(F, du) for F, du in steps]
+    del steps
+    _, _, _, _, creep = checkpoint.load(os.path.join(ck_dir,
+                                                     "state_000004.npz"))
+    tm = res.timers
+    elastic = stepper.run(big, Config(device="cuda"))
+    tip, tip_el = (r.aggregate_u.reshape(-1, 3)[:, 2].min()
+                   for r in (res, elastic))
+    print(f"creep: {n_big}^3 box ({big.ndof} DOFs, float64, tau 10 steps, "
+          f"expn 1), {res.nsteps} steps through {res.path}: MG-CG "
+          f"iterations {res.krylov_iters}, true rel residuals "
+          f"{['%.3e' % x for x in rels]}, tip deflection {tip:.6e} against "
+          f"elastic {tip_el:.6e} (ratio {tip / tip_el:.6f}, 12^3: "
+          f"{ratio12:.6f}), stepper.run wall {wall:.2f} s with checkpoints, "
+          f"peak device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), launches {launches}",
+          flush=True)
+    print("creep: phase timers (synchronized):\n" + tm.report(), flush=True)
+    print("creep: per step: " + ", ".join(
+        f"{name} {1e3 * tm.totals[name] / tm.counts[name]:.2f} ms"
+        for name in ("rhs", "solve", "stress")), flush=True)
+    check(all(abs(i - 12) <= 1 for i in res.krylov_iters),
+          f"80^3 creep MG-CG iterations {res.krylov_iters}, not 12 +- 1")
+    check(max(rels) <= 1e-8, f"80^3 creep true residuals {rels}")
+    check(tip / tip_el - 1.0 >= 0.75 * (ratio12 - 1.0),
+          f"80^3 creep deflection ratio {tip / tip_el} below the margin")
+    check(set(creep) == {"hex"} and np.isfinite(creep["hex"]).all(),
+          "80^3 creep state is not finite")
+    check(np.isfinite(res.aggregate_stress).all(), "80^3 creep stress")
+    for name in ("hex8_stiffness", "stencil_matvec"):
+        check(launches[name] > 0, f"the 80^3 creep run launched no {name}")
+    return res, saves, launches, creep
+
+
+def phase15_resume(torch, big_n, ck_dir, res, saves, creep):
+    """Phase 15: resume the 80^3 creep run from step 3; returns the resumed
+    run's launches."""
+    import os
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.solver import stepper
+    from fem_tpu_torch.utils import checkpoint
+
+    for path, size, seconds in saves:
+        print(f"checkpoint {os.path.basename(path)}: {size} bytes, written "
+              f"in {seconds:.3f} s ({size / seconds / 2**20:.1f} MiB/s)",
+              flush=True)
+    check(len(saves) == 4, f"{len(saves)} checkpoints, expected 4")
+    os.unlink(os.path.join(ck_dir, "state_000004.npz"))
+    msgs = []
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    again = stepper.run(creep_box(big_n, 10.0 * G_BOX, 1.0),
+                        Config(device="cuda", viscoelastic=True,
+                               checkpoint_dir=ck_dir), log=msgs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.launches)
+    _, _, _, _, creep2 = checkpoint.load(os.path.join(ck_dir,
+                                                      "state_000004.npz"))
+    diffs = [rel_max(again.aggregate_u, res.aggregate_u),
+             rel_max(again.aggregate_stress, res.aggregate_stress),
+             rel_max(creep2["hex"], creep["hex"])]
+    print(f"resume: {[m for m in msgs if 'Resumed' in m]}, MG-CG iterations "
+          f"{again.krylov_iters}, wall {wall:.2f} s; rel diff against the "
+          f"uninterrupted run: u {diffs[0]:.3e}, stress {diffs[1]:.3e}, creep "
+          f"state {diffs[2]:.3e} (tol 1e-12), launches {launches}",
+          flush=True)
+    check(any("next interval 4" in m for m in msgs), "no resume from step 3")
+    check(len(again.krylov_iters) == 1, "the resumed run ran more than 1 step")
+    check(max(diffs) <= 1e-12, f"resumed run differs: {diffs}")
+    return launches
+
+
+def phase16_trace(torch, n_big):
+    """Phase 16: one elastic step of the 80^3 box with timing and a
+    torch.profiler trace that must hold K1's and K2's kernels."""
+    import json
+    import os
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.solver import stepper
+    from fem_tpu_torch.utils.timing import TRACE_FILE
+
+    box = meshgen.hex_box_problem(n_big, n_big, n_big, lx=1.0, ly=1.0,
+                                  lz=1.0, E=200e9, nu=0.3, tip_load=-1e6)
+    with tempfile.TemporaryDirectory() as tmp:
+        msgs = []
+        t0 = time.perf_counter()
+        stepper.run(box, Config(device="cuda", timing=True, profile_dir=tmp),
+                    log=msgs.append)
+        wall = time.perf_counter() - t0
+        path = os.path.join(tmp, TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    report = [m for m in msgs if m.startswith("Phase timers")]
+    check(len(report) == 1, "the timed run printed no phase report")
+    print(f"trace: {n_big}^3 elastic step, {report[0]}", flush=True)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = {name: sum(name in k for k in kernels)
+            for name in ("hex8_stiffness_kernel", "stencil27_kernel")}
+    print(f"trace: {size} bytes of Chrome trace JSON, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events, by our kernels {ours}; "
+          f"stepper.run with the profiler {wall:.2f} s", flush=True)
+    for name, count in ours.items():
+        check(count > 0, f"the trace holds no CUDA kernel event of {name}")
+
+
+def phase17_gradients(torch, dev, k1_inputs):
+    """Phase 17: gradients through K1's and K2's autograd Functions, and
+    K3's refusal of a gradient. Returns the launches of the K1 and the K2
+    gradient, each counted from 0 before its forward."""
+    import numpy as np
+
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import elements, stiffness, structured
+
+    x, lam, mu = k1_inputs(131072, torch.float64)
+    W = torch.randn((24, 24, 131072), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    lam.requires_grad_()
+    mu.requires_grad_()
+
+    def grads(fn):
+        return torch.autograd.grad((W * fn(x, lam, mu)).sum(), [lam, mu])
+
+    ck.reset_launches()
+    got = grads(ck.hex8_stiffness)
+    torch.cuda.synchronize()
+    launches = ck.launches["hex8_stiffness"]
+    ref = grads(ck.hex8_stiffness_plain)
+    errs = [rel_max(g, r) for g, r in zip(got, ref)]
+    t_k1 = time_ms(torch, lambda: grads(ck.hex8_stiffness), 10)
+    t_plain = time_ms(torch, lambda: grads(ck.hex8_stiffness_plain), 5)
+    print(f"gradients: d<W, k_e>/d(lam, mu) at 131,072 hex8 through K1's "
+          f"autograd Function ({launches} K1 launches: forward and two in "
+          f"the backward), rel diff against the plain form's autograd "
+          f"{errs[0]:.3e} / {errs[1]:.3e} (tol 1e-12); forward + backward "
+          f"{t_k1:.4f} ms, plain {t_plain:.4f} ms", flush=True)
+    check(launches == 3, f"K1 forward + backward launched {launches}")
+    check(max(errs) <= 1e-12, f"K1 backward: {errs}")
+    del W, got, ref
+
+    # K2: d<W, K u>/du = K W on the 80^3 box's 81^3 node grid
+    op = structured.build((1.0 / 80,) * 3, (81, 81, 81),
+                          torch.tensor(1.5e11, dtype=torch.float64),
+                          torch.tensor(7.7e10, dtype=torch.float64),
+                          dtype=torch.float64, device=dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    u = torch.randn(op.ndof, dtype=torch.float64, device=dev, generator=gen,
+                    requires_grad=True)
+    W = torch.randn(op.ndof, dtype=torch.float64, device=dev, generator=gen)
+    ck.reset_launches()
+    (g_k2,) = torch.autograd.grad((W * ck.stencil_matvec(op.tables, u)).sum(),
+                                  u)
+    torch.cuda.synchronize()
+    k2_launches = ck.launches["stencil_matvec"]
+    (g_plain,) = torch.autograd.grad(
+        (W * ck.stencil27_plain(op.tables, u)).sum(), u)
+    err_k2 = rel_max(g_k2, g_plain)
+    print(f"gradients: d<W, K u>/du on the 81^3 node grid through K2's "
+          f"autograd Function ({k2_launches} K2 launches: forward and one in "
+          f"the backward), rel diff against the plain form's autograd "
+          f"{err_k2:.3e} (tol 1e-12)", flush=True)
+    check(k2_launches == 2, f"K2 forward + backward launched {k2_launches}")
+    check(err_k2 <= 1e-12, f"K2 backward: {err_k2}")
+    del op, u, W, g_k2, g_plain
+    # K3 has no backward: a gradient through it raises on cuda
+    x3 = torch.ones(2, dtype=torch.float64, device=dev, requires_grad=True)
+    try:
+        ck.csr_matvec(torch.tensor([0, 1, 2], device=dev),
+                      torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                      torch.ones(2, dtype=torch.float64, device=dev), x3, 1)
+    except NotImplementedError as e:
+        print(f"gradients: K3 with an input that requires grad raises: {e}",
+              flush=True)
+    else:
+        fail("K3 on an input that requires grad did not raise")
+
+    # compliance of the 6^3 box against per-element E
+    box = meshgen.hex_box_problem(6, 6, 6, lx=1.0, ly=1.0, lz=1.0)
+    et = elements.get("hex")
+
+    def compliance_fn(device):
+        conn = torch.as_tensor(box.blocks["hex"].conn, dtype=torch.int64,
+                               device=device)
+        ecoords = torch.as_tensor(box.coords, device=device)[conn]
+        edofs = stiffness.element_dofs(et, conn)
+        n = box.ndof
+        F = torch.zeros(n, dtype=torch.float64, device=device).index_add_(
+            0, torch.as_tensor(box.force_dofs.reshape(-1), dtype=torch.int64,
+                               device=device),
+            torch.as_tensor(box.force_vec.reshape(-1), device=device))
+        mask = torch.zeros(n, dtype=torch.bool, device=device)
+        mask[torch.as_tensor(box.bc_dofs, dtype=torch.int64,
+                             device=device)] = True
+
+        def compliance(E_els):
+            lam_e, mu_e = stiffness.lame(E_els, torch.full_like(E_els, 0.3))
+            ke = stiffness.element_stiffness_lame(et, ecoords, lam_e, mu_e)
+            K = torch.zeros((n, n), dtype=torch.float64,
+                            device=device).index_put(
+                (edofs[:, :, None], edofs[:, None, :]), ke, accumulate=True)
+            K = torch.where(mask[:, None] | mask[None, :], 0.0, K)
+            K = K + torch.diag(mask.to(K.dtype))
+            return F @ torch.linalg.solve(K, torch.where(mask, 0.0, F))
+
+        return compliance, ecoords
+
+    ne = box.blocks["hex"].ne
+    g = {}
+    for device in ("cuda", "cpu"):
+        compliance, ecoords = compliance_fn(device)
+        E0 = torch.full((ne,), 200e9, dtype=torch.float64, device=device,
+                        requires_grad=True)
+        (g[device],) = torch.autograd.grad(compliance(E0), E0)
+    d_cpu = rel_max(g["cuda"], g["cpu"])
+    compliance, ecoords = compliance_fn("cuda")
+    fd_errs = []
+    with torch.no_grad():
+        E0 = torch.full((ne,), 200e9, dtype=torch.float64, device=dev)
+        for e in np.random.default_rng(0).choice(ne, 3, replace=False):
+            dE = torch.zeros_like(E0)
+            dE[e] = 200e9 * 1e-4
+            fd = (compliance(E0 + dE) - compliance(E0 - dE)) / (2 * dE[e])
+            fd_errs.append(abs(float(g["cuda"][e]) / float(fd) - 1.0))
+    print(f"gradients: d compliance / dE of the 6^3 box ({ne} elements) on "
+          f"cuda: rel diff against the CPU plain autograd {d_cpu:.3e} (tol "
+          f"1e-10), against central differences at 3 elements "
+          f"{max(fd_errs):.3e} (tol 1e-5)", flush=True)
+    check(d_cpu <= 1e-10, f"compliance gradient cuda vs cpu: {d_cpu}")
+    check(max(fd_errs) <= 1e-5, f"compliance gradient vs FD: {fd_errs}")
+    # a gradient with respect to the coordinates raises on cuda
+    xg = ecoords.clone().requires_grad_()
+    lam_e, mu_e = (t.detach() for t in stiffness.lame(
+        torch.full((ne,), 200e9, dtype=torch.float64, device=dev),
+        torch.full((ne,), 0.3, dtype=torch.float64, device=dev)))
+    try:
+        torch.autograd.grad(stiffness.element_stiffness_lame(
+            et, xg, lam_e, mu_e).sum(), xg)
+    except NotImplementedError as e:
+        print(f"gradients: coordinate gradient on cuda raises: {e}",
+              flush=True)
+    else:
+        fail("a coordinate gradient through K1 on cuda did not raise")
+    return {"hex8_stiffness": launches, "stencil_matvec": k2_launches}
+
+
+def same(a, b, path="deck"):
+    """Field-for-field equality of two parsed decks or Problems."""
+    import numpy as np
+
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, dict):
+        check(list(a) == list(b), f"{path}: keys differ")
+        for k in a:
+            same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"{path}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        check(np.asarray(a).dtype == np.asarray(b).dtype
+              and np.array_equal(a, b), f"{path} differs")
+    else:
+        check(a == b and type(a) is type(b), f"{path} differs")
+
+
+def phase18_native(cli_main):
+    """Phase 18: the native parser on the card's host."""
+    import numpy as np
+
+    from fem_tpu_torch.io import inp, meshgen, native, vtk
+    from fem_tpu_torch.models import problem as problem_mod
+
+    check(native.available(), "native/libfemmesh.so does not load here")
+    decks = ["examples/ref/SNES_test/elastic/elastic_test.inp",
+             "examples/ref/cohesive_test_2.inp",
+             "examples/ref/lin_two_quads_qs.inp",
+             "examples/ref/SNES_test/cohesive_test/cohesive_test_2.inp"]
+    for deck in decks:
+        same(native.parse(deck), inp.parse(deck), deck)
+        a = problem_mod.load(deck, backend="native")
+        b = problem_mod.load(deck, backend="python")
+        # blocks matched by name: the two parsers may order them differently
+        check(sorted(a.blocks) == sorted(b.blocks), f"{deck}: blocks differ")
+        for name in a.blocks:
+            same(a.blocks[name], b.blocks[name], f"{deck}.blocks[{name!r}]")
+        for f in dataclasses.fields(a):
+            if f.name != "blocks":
+                same(getattr(a, f.name), getattr(b, f.name), f"{deck}.{f.name}")
+    # load(backend="auto") calls the native engine once per deck
+    calls = []
+    parse_flat = native.parse_flat
+    native.parse_flat = lambda src: calls.append(src) or parse_flat(src)
+    try:
+        for deck in decks:
+            problem_mod.load(deck)
+    finally:
+        native.parse_flat = parse_flat
+    print(f"native: {len(decks)} reference decks parse equal, field for "
+          f"field (Deck) and block by block (Problem), by the native and the "
+          f"Python parser; load(backend='auto') called native.parse_flat "
+          f"{len(calls)} times for {len(decks)} decks", flush=True)
+    check(len(calls) == len(decks), "load(backend='auto') did not take the "
+          "native engine for every deck")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = cli_main(["-f", decks[0], "--parser", "native", "--device",
+                       "cuda", "-q", "-o", f"{tmp}/"])
+        check(rc == 0, f"CLI --parser native exited {rc}")
+        pts, stress, disp = vtk.read_fields(f"{tmp}/0_output_000000.vtk")
+        for y, uy in ((2.0, 0.1), (1.0, 0.05)):
+            check(np.allclose(disp[pts[:, 1] == y, 1], uy, atol=1e-12),
+                  f"--parser native: golden u_y at y={y}")
+        check(np.allclose(stress[:, :2], [105.0, 245.0], atol=1e-6)
+              and np.allclose(stress[:, 2], 0.0, atol=1e-6),
+              "--parser native: golden stress")
+        print("native: CLI --parser native --device cuda on the elastic "
+              "golden deck: u_y 0.05/0.10, stress 105/245/0 ok", flush=True)
+        strip = f"{tmp}/strip.inp"
+        with open(strip, "w") as f:
+            f.write(meshgen.quad_strip_deck(1000, 200))
+        times = {}
+        for backend in ("python", "native", "python", "native"):
+            t0 = time.perf_counter()
+            p = problem_mod.load(strip, backend=backend)
+            times.setdefault(backend, []).append(time.perf_counter() - t0)
+            check(p.nels == 200000, f"strip parsed to {p.nels} elements")
+    print(f"native: host time of load() on the 1000 x 200 strip deck "
+          f"(200,000 quads, meshgen.quad_strip_deck): python "
+          f"{min(times['python']):.3f} s, native {min(times['native']):.3f} s "
+          f"(host times, best of 2)", flush=True)
 
 
 def main():
@@ -439,23 +991,8 @@ def main():
           and bool(np.isfinite(res.aggregate_stress).all()),
           "80^3 stress is not finite or has the wrong shape")
     # true residual of the masked system, with the per-corner form
-    system = System(big, torch.float64, device=dev)
-    spec = structured.detect(big)
-    lam_b, mu_b = lame(torch.tensor(spec["E"], dtype=torch.float64),
-                       torch.tensor(spec["nu"], dtype=torch.float64))
-    op = structured.build(spec["cell_sizes"], spec["node_shape"], lam_b,
-                          mu_b, dtype=torch.float64, device=dev)
-    k_ref = op.k_ref.contiguous()
-
-    def plain_k(v):
-        return ck.stencil_matvec_plain(k_ref, v, op.shape)
-
-    bc_mask = torch.zeros(big.ndof, dtype=torch.bool, device=dev)
-    bc_mask[system.bc_dofs] = True
-    b = cg.constrained_rhs(plain_k, system.rhs(0.0), bc_mask,
-                           torch.zeros_like(u))
-    r = b - cg.masked_operator(plain_k, bc_mask)(u)
-    true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(b))
+    system, op, rel = structured_box(torch, dev, big)
+    true_rel = rel(system.rhs(0.0), u)
     tip = float(u.reshape(-1, 3)[:, 2].min())
     print(f"80^3 box ({big.ndof} DOFs, float64): MG-CG iterations "
           f"{res.krylov_iters}, true rel residual {true_rel:.3e}, wall "
@@ -795,7 +1332,8 @@ def main():
               f"{label}: u or stress not finite / wrong shape")
         return res, msgs, launches_run
 
-    res12, msgs12, _ = run_strip(strip, "cohesive strip, lattice GMG")
+    res12, msgs12, launches_strip = run_strip(strip,
+                                              "cohesive strip, lattice GMG")
     check(any("lattice GMG" in m for m in msgs12),
           "the lex strip did not take the block stencil and lattice GMG")
     # the last step's Newton residual, recomputed from the assembled K_el
@@ -860,9 +1398,30 @@ def main():
     k3_hierarchy(ops.mg.hier, "strip")
     del ops
 
+    # 14-15. creep on the card; checkpoint / resume of its 80^3 run
+    with tempfile.TemporaryDirectory() as ck_dir:
+        res14, saves, launches14, creep14 = phase14_creep(torch, dev, 80,
+                                                          ck_dir)
+        launches15 = phase15_resume(torch, 80, ck_dir, res14, saves, creep14)
+    del res14, creep14
+    # 16. phase timers and the torch.profiler trace
+    phase16_trace(torch, 80)
+    # 17. gradients through K1's autograd Function
+    launches_grad = phase17_gradients(torch, dev, k1_inputs)
+    # 18. the native parser
+    phase18_native(cli_main)
+
     summary["csr_matvec"] = k3_real
-    launches["csr_matvec"] = (launches_amg["csr_matvec"]
-                              + launches_coh["csr_matvec"])
+    # each path's own launches, each counted from 0 just before its run
+    runs = {"direct_6": {"hex8_stiffness": k1_direct},
+            "elastic_80": launches, "amg_55": launches_amg,
+            "gmg_55": launches_gmg, "coh_strip_gmg": launches_strip,
+            "coh_strip_amg": launches_coh, "creep_80": launches14,
+            "resume_80": launches15, "gradients": launches_grad}
+    # "launches" is the count of the kernel's main path: the 80^3 elastic
+    # run for K1 and K2, the 55^3 SA-AMG run for K3
+    main_path = {"hex8_stiffness": "elastic_80",
+                 "stencil_matvec": "elastic_80", "csr_matvec": "amg_55"}
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),
@@ -873,7 +1432,10 @@ def main():
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
+         "launches": runs[main_path[name]][name],
+         "launches_path": main_path[name],
+         "launches_by_path": {path: run.get(name, 0)
+                              for path, run in runs.items()},
          **{key: summary[name][key] for key in (
              "max_abs_err", "ms", "back_to_back_ms", "cold_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "library_back_to_back_ms",

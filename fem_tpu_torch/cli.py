@@ -1,6 +1,7 @@
 """Command-line driver: `python -m fem_tpu_torch -f <deck.inp> [--device cpu]`.
 
-Port of `fem_tpu.cli` (single device). Mirrors the reference CLI
+Port of `fem_tpu/cli.py` (`:45-55,78,88-108`; single device: `--devices`
+and `--shards` wait for ROADMAP A.9). Mirrors the reference CLI
 `defmod -f <file>` (main.F90:31-33) and writes `0_output_000000.vtk` in the
 working directory like the reference's rank-0 writer (m_io.F90:496). Runs on
 the CUDA device by default; `--device cpu` asks for the CPU.
@@ -40,6 +41,18 @@ def main(argv=None) -> int:
                     help="cohesive residual (default: auto)")
     ap.add_argument("-o", "--output-prefix", default="",
                     help="directory/prefix for VTK output")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="write per-step resume checkpoints here")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="ignore existing checkpoints in --checkpoint-dir")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace (Chrome trace "
+                         "JSON) of the run here")
+    ap.add_argument("--timing", action="store_true",
+                    help="print per-phase wall-clock totals after the run")
+    ap.add_argument("--parser", default="auto",
+                    choices=["auto", "python", "native"],
+                    help="deck parser backend")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -62,7 +75,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     try:
-        problem = problem_mod.load(args.input_file)
+        problem = problem_mod.load(args.input_file, backend=args.parser)
     except (ValueError, NotImplementedError) as e:
         print(f"error: cannot parse {args.input_file}: {e}", file=sys.stderr)
         return 1
@@ -74,6 +87,10 @@ def main(argv=None) -> int:
         plane_stress=args.plane_stress,
         quirks=args.quirks,
         formulation=args.formulation,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=not args.no_resume,
+        profile_dir=args.profile_dir,
+        timing=args.timing,
     )
     log("Forming [K] ...")
     t0 = time.perf_counter()

@@ -5,9 +5,9 @@ Mirrors the reference's two config layers (SURVEY.md §5): the .inp deck header
 definition, while this Config carries solver/runtime knobs that the reference
 exposed through PETSc runtime options (main.F90:206,377).
 
-Options of `fem_tpu.config.Config` whose paths are not ported yet are still
-accepted as fields, and setting them raises NotImplementedError naming the
-ROADMAP item that ports them.
+Port of `fem_tpu/config.py`. Its multi-device option is still accepted as
+a field, and setting it raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -59,6 +59,21 @@ class Config:
         tangent turns indefinite) or "cg" (no fallback).
       quirks: reproduce two defects of the reference's cohesive element
         (see ops/cohesive.py). Default False: corrected physics.
+      viscoelastic: the power-law creep correction (the live version of the
+        reference's dead ReformElRHS path): per-step RHS term
+        B^T D_eff dt beta(sigma) and backward-Euler ip-stress updates, from
+        material columns 3-4 (viscosity, exponent), which the reference
+        parses but never uses (fem_tpu `config.py:52-56`).
+      checkpoint_dir / checkpoint_every / resume: write the restartable state
+        every `checkpoint_every` steps into checkpoint_dir
+        (utils/checkpoint.py, the npz layout fem_tpu writes) and, with
+        resume, start from the newest one found there.
+      profile_dir: torch.profiler trace of stepper.run, written there as a
+        Chrome trace JSON (utils/timing.device_trace).
+      timing: log per-phase wall-clock totals (setup / rhs / solve or
+        newton / stress) after the run; on a CUDA run each phase then ends
+        with a device synchronize, so it holds its device time.
+      n_devices: more than 1 is not ported yet (ROADMAP A.9).
     """
 
     device: str = "cuda"
@@ -81,25 +96,19 @@ class Config:
     forcing: str = "ew"
     inner_krylov: str = "auto"
     quirks: bool = False
-    # Not ported yet: setting any of these raises (see __post_init__).
     viscoelastic: bool = False
-    n_devices: Optional[int] = None
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    resume: bool = True
     profile_dir: Optional[str] = None
+    timing: bool = False
+    n_devices: Optional[int] = None
 
     def __post_init__(self):
-        unported = (
-            (self.viscoelastic, "viscoelastic creep", "A.8"),
-            (self.n_devices is not None and self.n_devices > 1,
-             "multi-device runs (n_devices > 1)", "A.9"),
-            (self.checkpoint_dir is not None, "checkpoint/resume", "A.8"),
-            (self.profile_dir is not None, "profiler traces", "A.8"),
-        )
-        for is_set, what, item in unported:
-            if is_set:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})"
-                )
+        if self.n_devices is not None and self.n_devices > 1:
+            raise NotImplementedError(
+                "multi-device runs (n_devices > 1) are not ported yet "
+                "(ROADMAP A.9)")
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
         if self.dtype not in ("float64", "float32"):

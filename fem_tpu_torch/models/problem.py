@@ -1,6 +1,6 @@
 """Problem model: struct-of-arrays mesh + loads, host side.
 
-Numpy copy of `fem_tpu.models.problem` (the Python parser path). Replaces the
+Numpy copy of `fem_tpu/models/problem.py` (both parser paths). Replaces the
 reference's array-of-structs `element` type and its global mesh state
 (m_elems.F90:6-12, m_global.F90:17-44) with type-batched numpy arrays: one
 `Block` per element type holding a dense (ne, nn) connectivity.
@@ -17,7 +17,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from fem_tpu_torch.io import inp
+from fem_tpu_torch.io import inp, native
 from fem_tpu_torch.ops import elements as element_lib
 
 
@@ -141,6 +141,45 @@ class Problem:
             trac_el=deck.trac_el, trac_side=deck.trac_side,
             trac_vec=deck.trac_vec, trac_t1=deck.trac_t1,
             trac_t2=deck.trac_t2, nodal_bw=deck.nodal_bw,
+            elem_lookup=elem_lookup,
+        )
+
+    @classmethod
+    def from_flat(cls, f: dict) -> "Problem":
+        """Build from the native engine's flat arrays (io.native.parse_flat)
+        without per-element Python objects (fem_tpu `problem.py:148-190`)."""
+        etypes = f["elem_type"]
+        conn = f["elem_conn"]
+        blocks: Dict[str, Block] = {}
+        for code, name in enumerate(element_lib.TYPE_ORDER):
+            mask = etypes == code
+            if not mask.any():
+                continue
+            blocks[name] = Block(
+                eltype=name,
+                conn=np.ascontiguousarray(
+                    conn[mask][:, : element_lib.get(name).nnodes]),
+                mat=f["elem_mat"][mask],
+                nlmat=f["elem_nlmat"][mask],
+                eids=np.nonzero(mask)[0].astype(np.int32),
+            )
+        _validate_mesh(f["coords"], blocks)
+
+        def elem_lookup(eid: int):
+            name = element_lib.TYPE_ORDER[int(etypes[eid])]
+            return name, conn[eid, : element_lib.get(name).nnodes]
+
+        return cls._assemble(
+            stype=f["stype"], pdim=f["pdim"], t=f["t"], dt=f["dt"],
+            coords=f["coords"], blocks=blocks, mats=f["mats"],
+            coh_laws=f["coh_laws"], coh_props=f["coh_props"],
+            bc_node=f["bc_node"], bc_flags=f["bc_flags"],
+            bc_vals_in=f["bc_vals"],
+            force_node=f["force_node"], force_vec=f["force_vec"],
+            force_t1=f["force_t1"], force_t2=f["force_t2"],
+            trac_el=f["trac_el"], trac_side=f["trac_side"],
+            trac_vec=f["trac_vec"], trac_t1=f["trac_t1"],
+            trac_t2=f["trac_t2"], nodal_bw=f["nodal_bw"],
             elem_lookup=elem_lookup,
         )
 
@@ -280,15 +319,18 @@ def _validate_mesh(coords: np.ndarray, blocks: Dict[str, Block]) -> None:
 
 
 def load(path_or_text, backend: str = "auto") -> Problem:
-    """Parse a deck and build the Problem in one call.
+    """Parse a deck and build the Problem in one call (fem_tpu
+    `problem.py:303-318`).
 
-    backend: "auto" and "python" use the pure-Python parser. "native" (the
-    C++ mesh engine, native/libfemmesh.so) is not ported yet (ROADMAP A.8).
+    backend: "auto" uses the native C++ parser (native/libfemmesh.so) when
+    it is built, else the pure-Python one; "python" / "native" force a
+    choice, and "native" without the library raises.
     """
     if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown parser backend {backend!r}")
-    if backend == "native":
-        raise NotImplementedError(
-            "the native mesh-engine parser is not ported yet (ROADMAP A.8)"
-        )
+    if backend != "python":
+        if native.available():
+            return Problem.from_flat(native.parse_flat(str(path_or_text)))
+        if backend == "native":
+            raise RuntimeError("native mesh engine not built (make -C native)")
     return Problem.from_deck(inp.parse(path_or_text))

@@ -1,17 +1,23 @@
 """Device-side FEM system, continuum part: assembly, RHS, stress recovery.
 
-Port of the continuum part of `fem_tpu.models.system`, the replacement for
-m_global.F90's PETSc-centric global layer: the whole system lives in device
-tensors and assembly is an index_put/index_add scatter.
+Port of `fem_tpu/models/system.py`, the replacement for m_global.F90's
+PETSc-centric global layer: the whole system lives in device tensors and
+assembly is an index_put/index_add scatter.
 
 A System precomputes, per continuum element type block:
   - gathered element coordinates  (ne, nn, pdim)   (gathered on the host)
   - per-element E, nu             (ne,)   [E=0 for mat -1 — FormLocalK
     m_global.F90:250-253]
+  - per-element visc, expn        (ne,)   (material columns 3-4, the power
+    law's viscosity and exponent)
   - interleaved dof index arrays  (ne, ndof_e)
 and lazily the element stiffness (ne, ndof_e, ndof_e) and D matrices.
 It exposes dense_K() / matvec(u) / diag(), rhs(t_init) / rhs_cumulative(t),
 bc_step_vals() / bc_total_vals(t) and stress_increment(du).
+
+The viscoelastic terms (fem_tpu `models/system.py:282-371`) are
+creep_state_init(), creep_moduli(state), creep_force(state, moduli) and
+creep_stress_update(state, du, moduli), and nodal_average_state(state).
 
 The cohesive block, when the deck has one, is kept apart in `self.coh`
 (element coordinates, dofs and Xu-Needleman props) and takes no part in the
@@ -87,6 +93,9 @@ class System:
                 edofs=stiff_ops.element_dofs(et, conn),
                 E=self._t(mats[b.mat, 0]),
                 nu=self._t(mats[b.mat, 1]),
+                visc=self._t(mats[b.mat, 2]),
+                expn=self._t(mats[b.mat, 3]),
+                creeps=bool((mats[b.mat, 2] > 0).any()),
             )
 
         self.bc_dofs = self._t(p.bc_dofs, torch.int64)
@@ -243,6 +252,103 @@ class System:
         return self._coh_scatter(torch.diagonal(self.coh_ke(u_total, quirks),
                                                 dim1=1, dim2=2))
 
+    # ---------------- viscoelastic creep ----------------
+
+    def creep_state_init(self):
+        """Zero per-integration-point stress state for every continuum block
+        with a creeping material (visc > 0): {name: (ne, nip, cpdim)}."""
+        return {
+            name: torch.zeros((e["conn"].shape[0], e["et"].nip, self.cpdim),
+                              dtype=self.dtype, device=self.device)
+            for name, e in self.blocks.items() if e["creeps"]
+        }
+
+    def _creep_D_eff_beta(self, name, sigma_ip):
+        """Effective modulus D_eff = (S + dt beta'(sigma))^-1, S = D^-1, and
+        the creep rate beta(sigma) at each ip: the reference's intended
+        implicit creep correction (ReformElRHS, m_local.F90:127-145).
+        Returns ((ne, nip, cpdim, cpdim), (ne, nip, cpdim))."""
+        self._continuum(need_ke=False)  # builds D
+        e = self.blocks[name]
+        if "S" not in e:
+            e["S"] = torch.linalg.inv(e["D"])  # constant over the run
+        visc, expn = e["visc"][:, None], e["expn"][:, None]
+        if self.pdim == 2:
+            beta = dmat_ops.creep_beta2d(sigma_ip, visc, expn)
+            betad = dmat_ops.creep_betad2d(sigma_ip, visc, expn)
+        else:
+            beta = dmat_ops.creep_beta3d(sigma_ip, visc, expn)
+            betad = dmat_ops.creep_betad3d(sigma_ip, visc, expn)
+        betad.mul_(self.dt).add_(e["S"][:, None])
+        return torch.linalg.inv(betad), beta
+
+    def creep_moduli(self, creep_state):
+        """{name: (D_eff, beta)} at the state: what creep_force and
+        creep_stress_update of one step share. Both use the state at the
+        start of the step, so one step computes this once and passes it to
+        both (fem_tpu recomputes it in each)."""
+        return {name: self._creep_D_eff_beta(name, sigma)
+                for name, sigma in creep_state.items()}
+
+    def _creep_geometry(self, name):
+        """dNx (ne, nip, pdim, nn) and detJ * w (ne, nip) of a creeping
+        block, computed at the first call and kept, as S is: creep_force and
+        creep_stress_update read them every step (0.79 GB of dNx in float64
+        at 80^3)."""
+        e = self.blocks[name]
+        if "dNx" not in e:
+            dNx, detj = stiff_ops.grad_and_detj(e["et"], e["ecoords"])
+            e["dNx"] = dNx
+            e["wdetj"] = detj * self._t(e["et"].weights)[None, :]
+        return e["dNx"], e["wdetj"]
+
+    def creep_force(self, creep_state, moduli):
+        """RHS correction f = sum_ip B^T D_eff (dt beta) w detJ scattered to
+        global dofs (the live version of the reference's dead ReformElRHS),
+        from the step's creep_moduli(creep_state). B^T g is contracted as
+        dNx^T T, T the symmetric tensor of the Voigt vector g, so B is never
+        formed."""
+        F = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
+        for name, (D_eff, beta) in moduli.items():
+            e = self.blocks[name]
+            dNx, wdetj = self._creep_geometry(name)
+            g = torch.einsum("eicd,eid->eic", D_eff, self.dt * beta)
+            T = _voigt_tensor(g * wdetj[..., None], self.pdim)
+            fe = torch.einsum("eipn,eipd->end", dNx, T)
+            F.index_add_(0, e["edofs"].reshape(-1), fe.reshape(-1))
+        return F
+
+    def creep_stress_update(self, creep_state, du, moduli):
+        """Backward-Euler stress update per ip, from the step's
+        creep_moduli(creep_state): sigma += D_eff (B du - dt beta(sigma))."""
+        new_state = {}
+        for name, sigma_ip in creep_state.items():
+            e = self.blocks[name]
+            D_eff, beta = moduli[name]
+            dNx, _ = self._creep_geometry(name)
+            ue = du[e["edofs"]].reshape(dNx.shape[0], -1, self.pdim)
+            eps = _voigt_strain(torch.einsum("eipn,end->eipd", dNx, ue),
+                                self.pdim)
+            new_state[name] = sigma_ip + torch.einsum(
+                "eicd,eid->eic", D_eff, eps - self.dt * beta)
+        return new_state
+
+    def nodal_average_state(self, state_by_block):
+        """Nodal average of per-ip stress states {name: (ne, nip, cpdim)}
+        (the viscoelastic run's output field; extrapolation and
+        count-average as in stress_increment)."""
+        sums = torch.zeros((self.nnds, self.cpdim), dtype=self.dtype,
+                           device=self.device)
+        counts = torch.zeros(self.nnds, dtype=self.dtype, device=self.device)
+        for name, sigma_ip in state_by_block.items():
+            e = self.blocks[name]
+            sig_nodes = stiff_ops.nodal_stress(e["et"], sigma_ip)
+            conn_flat = e["conn"].reshape(-1)
+            sums.index_add_(0, conn_flat, sig_nodes.reshape(-1, self.cpdim))
+            counts.index_add_(0, conn_flat, torch.ones_like(conn_flat,
+                                                            dtype=self.dtype))
+        return sums / torch.clamp(counts, min=1.0)[:, None]
+
     # ---------------- stress ----------------
 
     def stress_increment(self, du):
@@ -279,3 +385,28 @@ def _window_fraction(t_init, t_end, t1, t2):
     return torch.where(active, applied / torch.where(width > 0, width,
                                                      torch.ones_like(width)),
                        torch.zeros_like(width))
+
+
+def _voigt_tensor(g, pdim):
+    """Symmetric (pdim, pdim) tensor of Voigt vectors g (..., cpdim) in
+    BMat's order (xx, yy, xy) / (xx, yy, zz, xy, yz, zx): B^T g at a node
+    is dNx^T of it."""
+    if pdim == 2:
+        xx, yy, xy = g.unbind(-1)
+        rows = [(xx, xy), (xy, yy)]
+    else:
+        xx, yy, zz, xy, yz, zx = g.unbind(-1)
+        rows = [(xx, xy, zx), (xy, yy, yz), (zx, yz, zz)]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _voigt_strain(G, pdim):
+    """Engineering strain B u in Voigt order from the displacement gradient
+    G[p, d] = d u_d / d x_p (..., pdim, pdim)."""
+    if pdim == 2:
+        return torch.stack([G[..., 0, 0], G[..., 1, 1],
+                            G[..., 1, 0] + G[..., 0, 1]], dim=-1)
+    return torch.stack([G[..., 0, 0], G[..., 1, 1], G[..., 2, 2],
+                        G[..., 1, 0] + G[..., 0, 1],
+                        G[..., 2, 1] + G[..., 1, 2],
+                        G[..., 2, 0] + G[..., 0, 2]], dim=-1)

@@ -10,7 +10,10 @@ checked against on the card), the wrapper, and a launch count.
 
 A wrapper given a CPU tensor returns the plain version. Given a CUDA tensor
 it launches the kernel (built at first use by `fem_tpu_torch.kernels_build`)
-on the current stream or raises; there is no fallback. `launches[name]` is
+on the current stream or raises; there is no fallback. On CUDA, K1 is
+differentiable in (lam, mu) and K2 in u, each through an autograd Function
+whose backward launches the kernel again; K1's coordinate gradient and any
+gradient through K3 raise there (ROADMAP A.8, open row). `launches[name]` is
 incremented once per kernel launch and nowhere else. The wrappers sit on
 launch-bound solver loops, so their checks format a message only when they
 fail.
@@ -93,10 +96,8 @@ def hex8_stiffness_plain(ecoords_l, lam, mu):
     return ke.reshape(24, 24, ecoords_l.shape[-1])
 
 
-def hex8_stiffness(ecoords_l, lam, mu):
-    """K1 wrapper: same contract as hex8_stiffness_plain."""
-    if ecoords_l.device.type == "cpu":
-        return hex8_stiffness_plain(ecoords_l, lam, mu)
+def _hex8_launch(ecoords_l, lam, mu):
+    """One K1 launch on CUDA tensors: hex8_stiffness_plain's contract."""
     _check(ecoords_l.is_cuda, "unsupported device {}", ecoords_l.device)
     ne = ecoords_l.shape[-1] if ecoords_l.dim() == 3 else -1
     _check(ecoords_l.shape == (3, 8, ne), "ecoords_l must be (3, 8, ne), got "
@@ -115,6 +116,47 @@ def hex8_stiffness(ecoords_l, lam, mu):
     _launch("hex8_stiffness", ecoords_l, ecoords_l.data_ptr(), lam.data_ptr(),
             mu.data_ptr(), out.data_ptr(), ne)
     return out
+
+
+class _Hex8Stiffness(torch.autograd.Function):
+    """K1 with autograd in lam and mu. k_e is linear in (lam, mu) per
+    element, so with G the gradient of the output,
+    grad_lam[e] = sum G[:, :, e] * K1(x, 1, 0)[:, :, e] and grad_mu likewise
+    with K1(x, 0, 1): one more K1 launch and one reduction for each."""
+
+    @staticmethod
+    def forward(ctx, ecoords_l, lam, mu):
+        ctx.save_for_backward(ecoords_l)
+        return _hex8_launch(ecoords_l, lam, mu)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        if ctx.needs_input_grad[0]:
+            raise NotImplementedError(
+                "the gradient of K1 (hex8_stiffness) with respect to the "
+                "element coordinates is not ported on CUDA (ROADMAP A.8, "
+                "open row); on the CPU the plain form gives it")
+        (x,) = ctx.saved_tensors
+        grad = grad.contiguous()
+        one = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+        zero = torch.zeros_like(one)
+        g_lam = g_mu = None
+        if ctx.needs_input_grad[1]:
+            g_lam = (grad * _hex8_launch(x, one, zero)).sum((0, 1))
+        if ctx.needs_input_grad[2]:
+            g_mu = (grad * _hex8_launch(x, zero, one)).sum((0, 1))
+        return None, g_lam, g_mu
+
+
+def hex8_stiffness(ecoords_l, lam, mu):
+    """K1 wrapper: same contract as hex8_stiffness_plain. On CUDA tensors
+    it is differentiable in lam and mu (_Hex8Stiffness); a gradient with
+    respect to ecoords_l raises there. On CPU tensors it is the plain form,
+    differentiable in every input."""
+    if ecoords_l.device.type == "cpu":
+        return hex8_stiffness_plain(ecoords_l, lam, mu)
+    return _Hex8Stiffness.apply(ecoords_l, lam, mu)
 
 
 # --------------------------------------------------------------------------
@@ -260,11 +302,8 @@ def stencil27_plain(t: StencilTables, u):
     return out.T.reshape(-1)
 
 
-def stencil_matvec(t: StencilTables, u):
-    """K2 wrapper for 3D node grids: same contract as stencil27_plain."""
-    if not u.is_cuda:
-        _check(u.device.type == "cpu", "unsupported device {}", u.device)
-        return stencil27_plain(t, u)
+def _k2_launch(t: StencilTables, u):
+    """One K2 launch on a CUDA u: stencil27_plain's contract."""
     nx, ny, nz = t.shape
     _check(u.dim() == 1 and u.shape[0] == nx * ny * nz * 3
            and u.is_contiguous(), "u must be a contiguous ({},) vector, got "
@@ -277,6 +316,33 @@ def stencil_matvec(t: StencilTables, u):
     _launch("stencil_matvec", u, t.interior.data_ptr(), t.coef.data_ptr(),
             u.data_ptr(), out.data_ptr(), nx, ny, nz)
     return out
+
+
+class _StencilMatvec(torch.autograd.Function):
+    """K2 with autograd in u. The assembled K is symmetric, so the gradient
+    of <G, K u> with respect to u is K G: one more K2 launch. The tables are
+    constants (stencil_tables detaches k_ref), as in the plain form."""
+
+    @staticmethod
+    def forward(ctx, t, u):
+        ctx.tables = t
+        return _k2_launch(t, u)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _StencilMatvec.apply(ctx.tables, grad.contiguous())
+
+
+def stencil_matvec(t: StencilTables, u):
+    """K2 wrapper for 3D node grids: same contract as stencil27_plain. On a
+    CUDA u that requires grad it is differentiable in u (_StencilMatvec);
+    the solver loops, which take no gradient, launch K2 directly."""
+    if not u.is_cuda:
+        _check(u.device.type == "cpu", "unsupported device {}", u.device)
+        return stencil27_plain(t, u)
+    if u.requires_grad and torch.is_grad_enabled():
+        return _StencilMatvec.apply(t, u)
+    return _k2_launch(t, u)
 
 
 # --------------------------------------------------------------------------
@@ -309,10 +375,16 @@ def csr_matvec_plain(indptr, indices, data, x):
 
 def csr_matvec(indptr, indices, data, x, lanes: int):
     """K3 wrapper: same contract as csr_matvec_plain; `lanes` threads share a
-    row (csr_lanes)."""
+    row (csr_lanes). On CUDA tensors it has no backward: an input that
+    requires grad raises there. On CPU tensors it is the plain form,
+    differentiable in data and x."""
     if not x.is_cuda:
         _check(x.device.type == "cpu", "unsupported device {}", x.device)
         return csr_matvec_plain(indptr, indices, data, x)
+    if torch.is_grad_enabled() and (x.requires_grad or data.requires_grad):
+        raise NotImplementedError(
+            "the gradient of K3 (csr_matvec) is not ported on CUDA (ROADMAP "
+            "A.8, open row); on the CPU the plain form gives it")
     index = x.get_device()
     _check(x.dim() == 1 and data.dtype == x.dtype
            and data.get_device() == index,

@@ -1,8 +1,9 @@
-"""Constitutive models: isotropic linear elasticity, in torch.
+"""Constitutive models: isotropic linear elasticity and power-law creep, in
+torch.
 
-Port of `fem_tpu.ops.dmat`'s DMat2d/DMat3d (m_local.F90:204-228). The
-power-law creep functions (m_local.F90:231-314) are not ported yet
-(ROADMAP A.8). All functions are batched over leading axes.
+Port of `fem_tpu/ops/dmat.py`: DMat2d/DMat3d (m_local.F90:204-228) and the
+viscoelastic Matbeta/Matbetad family (m_local.F90:231-314; fem_tpu
+`ops/dmat.py:68-180`). All functions are batched over leading axes.
 """
 
 from __future__ import annotations
@@ -59,3 +60,91 @@ def dmat(E, nu, pdim: int):
     if pdim == 3:
         return dmat3d(E, nu)
     raise ValueError(f"dmat: pdim must be 2 or 3, got {pdim}")
+
+
+def _creep_scale(kappa, visc, expn):
+    """kappa^(n-1) / (4 visc), the power law's scalar factor."""
+    return kappa ** (expn - 1.0) / (4.0 * visc)
+
+
+def creep_beta2d(stress, visc, expn):
+    """Power-law creep strain rate beta(sigma), 2D (m_local.F90:239-246).
+
+    stress: (..., 3) (xx, yy, xy); visc and expn broadcast against its
+    leading axes. Returns (..., 3):
+    kappa = sqrt(((s1-s2)/2)^2 + s3^2); beta = kappa^(n-1)/(4 visc) C sigma.
+    """
+    s1, s2, s3 = stress.unbind(-1)
+    kappa = torch.sqrt(((s1 - s2) / 2.0) ** 2 + s3 ** 2)
+    c_sigma = torch.stack([s1 - s2, s2 - s1, 4.0 * s3], dim=-1)
+    return _creep_scale(kappa, visc, expn)[..., None] * c_sigma
+
+
+def _kappa3d(stress):
+    s1, s2, s3, s4, s5, s6 = stress.unbind(-1)
+    return torch.sqrt(((s1 - s2) ** 2 + (s2 - s3) ** 2 + (s1 - s3) ** 2) / 6.0
+                      + s4 ** 2 + s5 ** 2 + s6 ** 2)
+
+
+_T23, _T43 = -2.0 / 3.0, 4.0 / 3.0
+# C of the 3D law (m_local.F90:255-262); d(beta)/d(sigma)'s constant part
+_C3D = ((_T43, _T23, _T23, 0, 0, 0),
+        (_T23, _T43, _T23, 0, 0, 0),
+        (_T23, _T23, _T43, 0, 0, 0),
+        (0, 0, 0, 4.0, 0, 0),
+        (0, 0, 0, 0, 4.0, 0),
+        (0, 0, 0, 0, 0, 4.0))
+
+
+def creep_beta3d(stress, visc, expn):
+    """Power-law creep strain rate beta(sigma), 3D (m_local.F90:249-263).
+
+    stress: (..., 6) in the order (xx, yy, zz, xy, yz, zx); returns (..., 6).
+    """
+    cmat = torch.tensor(_C3D, dtype=stress.dtype, device=stress.device)
+    return (_creep_scale(_kappa3d(stress), visc, expn)[..., None]
+            * torch.einsum("ij,...j->...i", cmat, stress))
+
+
+def creep_betad2d(stress, visc, expn):
+    """d(beta)/d(sigma), 2D (m_local.F90:276-288). (..., 3) -> (..., 3, 3).
+
+    Zero where kappa == 0, the reference's early return: kappa is replaced
+    by 1 there before any division, so no NaN is formed."""
+    s1, s2, s3 = stress.unbind(-1)
+    kappa = torch.sqrt(((s1 - s2) / 2.0) ** 2 + s3 ** 2)
+    zero = kappa == 0.0
+    safe = torch.where(zero, torch.ones_like(kappa), kappa)
+    c1 = 1.0 + (expn - 1.0) * ((s1 - s2) / (2.0 * safe)) ** 2
+    c2 = 1.0 + (expn - 1.0) * (s3 / safe) ** 2
+    c3 = (expn - 1.0) * (s1 * s3 - s2 * s3) / safe ** 2
+    rows = torch.stack([
+        torch.stack([c1, -c1, c3], dim=-1),
+        torch.stack([-c1, c1, -c3], dim=-1),
+        torch.stack([c3, -c3, 4.0 * c2], dim=-1),
+    ], dim=-2)
+    out = _creep_scale(safe, visc, expn)[..., None, None] * rows
+    return out.masked_fill(zero[..., None, None], 0.0)
+
+
+def creep_betad3d(stress, visc, expn):
+    """d(beta)/d(sigma), 3D (m_local.F90:292-314). (..., 6) -> (..., 6, 6).
+
+    The reference's form: C + v v^T with v = sqrt(n-1) (the deviator's
+    normal components / 3, 2 tau) / kappa. Zero where kappa == 0, as in
+    creep_betad2d."""
+    s1, s2, s3, s4, s5, s6 = stress.unbind(-1)
+    kappa = _kappa3d(stress)
+    zero = kappa == 0.0
+    safe = torch.where(zero, torch.ones_like(kappa), kappa)
+    c = torch.sqrt(torch.as_tensor(expn - 1.0, dtype=stress.dtype,
+                                   device=stress.device))
+    v = torch.stack([c * (2.0 * s1 - s2 - s3) / (3.0 * safe),
+                     c * (2.0 * s2 - s3 - s1) / (3.0 * safe),
+                     c * (2.0 * s3 - s1 - s2) / (3.0 * safe),
+                     c * 2.0 * s4 / safe, c * 2.0 * s5 / safe,
+                     c * 2.0 * s6 / safe], dim=-1)
+    cmat = torch.tensor(_C3D, dtype=stress.dtype, device=stress.device)
+    rows = cmat + v[..., :, None] * v[..., None, :]
+    out = _creep_scale(safe, visc, expn)[..., None, None] * rows
+    return out.masked_fill(zero[..., None, None], 0.0)

@@ -11,7 +11,9 @@ All batch-first functions take a leading element batch axis:
   ue:      (ne, nn*pdim)    element displacement vector (interleaved dofs)
 
 The hex8 isotropic stiffness goes through `cuda_kernels.hex8_stiffness`
-(kernel K1 on a CUDA tensor, its plain torch form on a CPU tensor).
+(kernel K1 on a CUDA tensor, differentiable there in lam and mu; its plain
+torch form on a CPU tensor, differentiable in every input, as fem_tpu's is
+under jax.grad, fem_tpu `tests/test_differentiable.py:17-59`).
 """
 
 from __future__ import annotations

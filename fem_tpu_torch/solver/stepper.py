@@ -1,19 +1,27 @@
 """Incremental quasi-static time stepping — the time loop.
 
-Port of `fem_tpu.solver.stepper.run` (linear paths and the cohesive Newton
-path). Mirrors main.F90:216-296: for interval k = 1,2,..., t_init = dt*(k-1)
-until t_init >= t; each step forms the time-windowed RHS, solves (a linear
-solve, or one Newton solve on cohesive decks, logged as "SNES Iteration
-Count"), and accumulates aggregate_u += du and aggregate_stress += nodal
-stress of the increment.
+Port of `fem_tpu.solver.stepper.run` (fem_tpu `solver/stepper.py:226-1337`,
+single device). Mirrors main.F90:216-296: for interval k = 1,2,...,
+t_init = dt*(k-1) until t_init >= t; each step forms the time-windowed RHS,
+solves (a linear solve, or one Newton solve on cohesive decks, logged as
+"SNES Iteration Count"), and accumulates aggregate_u += du and
+aggregate_stress += nodal stress of the increment.
 `stype == "explicit"` performs no solve and writes zeros, like the reference
 (main.F90:199,238).
 
 The solver path is chosen by one table, PATHS: the first row whose predicate
-holds for the problem's features names the path. Rows of paths that are not
-ported yet raise NotImplementedError naming their ROADMAP item; later slices
-port a path by giving its row a setup function. Every setup returns one
-step(F, du_prev, aggregate_u, t_end) -> Increment.
+holds for the problem's features names the path. The row of a path that is
+not ported yet (`sharded`) raises NotImplementedError naming its ROADMAP
+item. Every setup returns one step(F, du_prev, aggregate_u, t_end) ->
+Increment.
+
+Viscoelastic creep (Config.viscoelastic) is not a path: on every linear row
+it adds System.creep_force of the per-ip creep state to the step's RHS, and
+after the solve it updates that state and makes aggregate_stress its nodal
+average (fem_tpu `stepper.py:1259-1262,1311-1316`). The run checkpoints its
+state every `checkpoint_every` steps and resumes from the newest checkpoint
+(fem_tpu `stepper.py:251-292,1319-1323`), times its phases (StepResult.
+timers) and, with Config.profile_dir, records a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from fem_tpu_torch.models.system import PENALTY, System
 from fem_tpu_torch.ops import structured
 from fem_tpu_torch.ops.stiffness import lame
 from fem_tpu_torch.solver import amg, cg, direct, hierarchy, multigrid, newton
+from fem_tpu_torch.utils import checkpoint
+from fem_tpu_torch.utils.timing import Timers, device_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +50,6 @@ class Features:
 
     explicit: bool
     cohesive: bool
-    creep: bool
     sharded: bool
     solver: str  # "direct" | "cg"
     structured: bool
@@ -51,7 +60,6 @@ class Features:
 PATHS = (
     ("explicit", lambda f: f.explicit, None),
     ("cohesive_newton", lambda f: f.cohesive, None),
-    ("creep", lambda f: f.creep, "A.8"),
     ("sharded", lambda f: f.sharded, "A.9"),
     ("direct", lambda f: f.solver == "direct", None),
     ("structured_mg_cg", lambda f: f.structured, None),
@@ -83,6 +91,8 @@ class StepResult:
     newton_iters: List[int] = dataclasses.field(default_factory=list)
     newton_converged: List[bool] = dataclasses.field(default_factory=list)
     gmres_fallbacks: List[int] = dataclasses.field(default_factory=list)
+    # phase wall-clock totals: setup, rhs, solve or newton, stress
+    timers: Optional[Timers] = None
 
 
 class Increment(NamedTuple):
@@ -281,22 +291,30 @@ def run(
     log: Optional[Callable[[str], None]] = None,
 ) -> StepResult:
     config = config or Config()
-    log = log or (lambda msg: None)
+    with device_trace(config.profile_dir):
+        return _run(problem, config, log or (lambda msg: None))
+
+
+def _run(problem: Problem, config: Config, log) -> StepResult:
     dtype = config.torch_dtype
     device = config.torch_device()
+    tm = Timers(sync_device=device if config.timing and device.type == "cuda"
+                else None)
     n = problem.ndof
     solver = config.resolve_solver(n)
     spec = structured.detect(problem) if solver == "cg" else None
     path = choose_path(Features(
         explicit=problem.stype == "explicit",
         cohesive=problem.has_cohesive,
-        creep=config.viscoelastic,
         sharded=bool(config.n_devices and config.n_devices > 1),
         solver=solver,
         structured=spec is not None,
         precond=config.resolve_precond(n),
     ))
     log(f"    Solver path: {path}")
+    if config.viscoelastic and path == "cohesive_newton":
+        raise NotImplementedError(
+            "viscoelastic + cohesive in one run is not supported yet")
     cpdim = 3 if problem.pdim == 2 else 6
     aggregate_u = torch.zeros(n, dtype=dtype, device=device)
     aggregate_stress = torch.zeros((problem.nnds, cpdim), dtype=dtype,
@@ -307,16 +325,47 @@ def run(
     newton_converged: List[bool] = []
     gmres_fallbacks: List[int] = []
     nsteps = problem.nsteps
+    first_step = 1
+    resumed_creep = None
+    if config.checkpoint_dir and config.resume:
+        ck_path = checkpoint.latest(config.checkpoint_dir)
+        if ck_path is not None:
+            (step0, aggregate_u, aggregate_stress, du,
+             resumed_creep) = checkpoint.load(ck_path, device=device,
+                                              dtype=dtype)
+            first_step = step0 + 1
+            log(f"Resumed from {ck_path} (next interval {first_step})")
 
-    if path != "explicit":
-        system = System(problem, dtype, device=device,
-                        plane_stress=config.plane_stress)
-        step = _SETUP[path](system, config, solver, spec, log)
-        for k in range(1, nsteps + 1):
+    if path == "explicit":
+        for k in range(first_step, nsteps + 1):
+            log(f"Interval: {k}")
+    else:
+        with tm.phase("setup"):
+            system = System(problem, dtype, device=device,
+                            plane_stress=config.plane_stress)
+            creep_state = (system.creep_state_init() if config.viscoelastic
+                           else {})
+            if creep_state and resumed_creep is not None:
+                # the per-ip creep stress is part of the restartable state:
+                # resuming without it would silently re-zero the history
+                if set(resumed_creep) != set(creep_state):
+                    raise ValueError(
+                        "checkpoint has no creep state for this viscoelastic "
+                        "run; it predates creep checkpointing — rerun with "
+                        "--no-resume or a fresh --checkpoint-dir")
+                creep_state = resumed_creep
+            step = _SETUP[path](system, config, solver, spec, log)
+        solve_phase = "newton" if path == "cohesive_newton" else "solve"
+        for k in range(first_step, nsteps + 1):
             log(f"Interval: {k}")
             t_init = problem.dt * (k - 1)
-            inc = step(system.rhs(t_init), du, aggregate_u,
-                       t_init + problem.dt)
+            with tm.phase("rhs"):
+                F = system.rhs(t_init)
+                if creep_state:
+                    moduli = system.creep_moduli(creep_state)
+                    F = F + system.creep_force(creep_state, moduli)
+            with tm.phase(solve_phase):
+                inc = step(F, du, aggregate_u, t_init + problem.dt)
             du = inc.du
             if inc.iters is not None:
                 krylov_iters.append(int(inc.iters))
@@ -325,10 +374,24 @@ def run(
                 newton_converged.append(inc.newton.converged)
                 gmres_fallbacks.append(inc.newton.gmres_fallbacks)
             aggregate_u = aggregate_u + du
-            aggregate_stress = aggregate_stress + system.stress_increment(du)
-    else:
-        for k in range(1, nsteps + 1):
-            log(f"Interval: {k}")
+            with tm.phase("stress"):
+                if creep_state:
+                    creep_state = system.creep_stress_update(creep_state, du,
+                                                             moduli)
+                    # frees D_eff (1.2 GB at 80^3) before the next step
+                    # forms its own
+                    del moduli
+                    aggregate_stress = system.nodal_average_state(creep_state)
+                else:
+                    aggregate_stress = (aggregate_stress
+                                        + system.stress_increment(du))
+            if config.checkpoint_dir and k % max(config.checkpoint_every,
+                                                 1) == 0:
+                checkpoint.save(config.checkpoint_dir, k, aggregate_u,
+                                aggregate_stress, du,
+                                creep_state=creep_state or None)
+    if config.timing:
+        log("Phase timers:\n" + tm.report())
 
     return StepResult(
         aggregate_u=aggregate_u.cpu().numpy(),
@@ -340,4 +403,5 @@ def run(
         newton_iters=newton_iters,
         newton_converged=newton_converged,
         gmres_fallbacks=gmres_fallbacks,
+        timers=tm,
     )

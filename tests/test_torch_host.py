@@ -18,7 +18,7 @@ from fem_tpu.io import vtk as j_vtk
 from fem_tpu.models import problem as j_problem
 from fem_tpu.utils import smallmat as j_smallmat
 from fem_tpu_torch.config import Config
-from fem_tpu_torch.io import inp, meshgen, vtk
+from fem_tpu_torch.io import inp, meshgen, native, vtk
 from fem_tpu_torch.models import problem as problem_mod
 from fem_tpu_torch.models.system import System
 from fem_tpu_torch.utils import smallmat
@@ -68,8 +68,10 @@ def test_deck_parses_like_fem_tpu(deck):
     assert_same(d, d_ref)
     assert_same(problem_mod.Problem.from_deck(d),
                 j_problem.Problem.from_deck(d_ref))
-    assert_same(problem_mod.load(deck),
+    assert_same(problem_mod.load(deck, backend="python"),
                 j_problem.load(deck, backend="python"))
+    # "auto" takes the native engine in both packages when it is built
+    assert_same(problem_mod.load(deck), j_problem.load(deck))
 
 
 def test_constraint_equations_rejected_like_fem_tpu():
@@ -86,8 +88,14 @@ def test_constraint_equations_rejected_like_fem_tpu():
 
 
 def test_native_parser_not_ported():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        problem_mod.load(DECKS[0], backend="native")
+    """The native parser, once unported (ROADMAP A.8), now parses like the
+    Python one, field for field."""
+    assert native.available()
+    assert_same(native.parse(DECKS[0]), inp.parse(DECKS[0]))
+    a = problem_mod.load(DECKS[0], backend="native")
+    assert_same(a, problem_mod.Problem.from_flat(native.parse_flat(DECKS[0])))
+    assert_same(a.blocks["qua"], problem_mod.load(
+        DECKS[0], backend="python").blocks["qua"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -161,8 +169,15 @@ def test_import_leaves_jax_out():
     (dict(profile_dir="trace"), "A.8"),
 ])
 def test_config_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Config(device="cpu", **kw)
+    """The A.8 options are ported: accepted and kept. n_devices > 1 still
+    raises, naming A.9."""
+    if item == "A.9":
+        with pytest.raises(NotImplementedError, match=item):
+            Config(device="cpu", **kw)
+        return
+    c = Config(device="cpu", **kw)
+    for key, value in kw.items():
+        assert getattr(c, key) == value
 
 
 def test_config_accepts_amg_precond():

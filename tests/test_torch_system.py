@@ -122,7 +122,7 @@ def test_linear_decks_match_fem_tpu(path, name, solver, bc_mode):
 
 
 def test_path_table_rows():
-    f = dict(explicit=False, cohesive=False, creep=False, sharded=False,
+    f = dict(explicit=False, cohesive=False, sharded=False,
              solver="cg", structured=False, precond="jacobi")
     assert stepper.choose_path(stepper.Features(**f)) == "unstructured_jacobi_cg"
     assert stepper.choose_path(stepper.Features(
@@ -135,18 +135,26 @@ def test_path_table_rows():
         **{**f, "precond": "amg"})) == "unstructured_amg_or_lattice_gmg_cg"
     assert stepper.choose_path(stepper.Features(
         **{**f, "cohesive": True})) == "cohesive_newton"
-    for key, value, item in (("creep", True, "A.8"), ("sharded", True, "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            stepper.choose_path(stepper.Features(**{**f, key: value}))
+    # creep is not a row (ROADMAP A.8 adds it to every linear row's RHS);
+    # sharded runs still raise
+    assert "creep" not in [name for name, _, _ in stepper.PATHS]
+    with pytest.raises(NotImplementedError, match="A.9"):
+        stepper.choose_path(stepper.Features(**{**f, "sharded": True}))
 
 
 def test_unported_rows_raise_from_run():
-    # the cohesive row (ROADMAP A.7) now runs; creep still raises (A.8)
+    # the cohesive row (ROADMAP A.7) runs, and so does creep (A.8): el_test
+    # has one step from a zero creep state, so its creep force is zero and
+    # u is the elastic run's; its material (visc 1e18) barely relaxes
     r = stepper.run(problem_mod.load(deck("cohesive_test_2.inp")),
                     Config(device="cpu"))
     assert r.path == "cohesive_newton" and r.newton_iters[0] == 1
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Config(device="cpu", viscoelastic=True)
+    el = problem_mod.load(deck("el_test.inp"))
+    r_visc = stepper.run(el, Config(device="cpu", viscoelastic=True))
+    r_el = stepper.run(el, Config(device="cpu"))
+    assert r_visc.path == "direct"
+    np.testing.assert_array_equal(r_visc.aggregate_u, r_el.aggregate_u)
+    close(r_visc.aggregate_stress, r_el.aggregate_stress, rtol=1e-9)
     # a jittered box (no uniform grid) above amg_threshold takes the
     # unstructured amg row: SA-AMG at or below gmg_min, converged
     box = meshgen.hex_box_problem(2, 2, 2, jitter=0.3)

@@ -3,6 +3,7 @@
     python tools/torch_profile_solve.py [--n 80] [--reps 3] [--trace PATH]
     python tools/torch_profile_solve.py --amg [--n 55] [--reps 1]
     python tools/torch_profile_solve.py --coh [--n 360] [--reps 1]
+    python tools/torch_profile_solve.py --creep [--n 80] [--reps 3]
 
 Default: the structured MG-CG path of stepper.run on the n^3-cell hex8 box
 (n = 80: 1,594,323 DOFs). With --amg: the unstructured path's SA-AMG branch
@@ -14,13 +15,22 @@ matrix in CSR form. With --coh: the cohesive Newton path on fem_tpu's
 benchmark strip (cohesive_interface_problem(n, n // 5), lx = 5; n = 360:
 105,412 DOFs), matrix-free Newton-Krylov with the block stencil and lattice
 GMG; the profiled "solve" is the first load step's Newton solve, from zero, to
-u_y = 0.0075 on the top edge. float64 throughout, on the CUDA card.
+u_y = 0.0075 on the top edge. With --creep: one viscoelastic load step of
+the n^3 box through the structured MG-CG path (visc 10 G, tau = 10 steps,
+expn 1), split into the creep moduli (D_eff = (S + dt beta')^-1, the batched
+6x6 inverses), the RHS with the creep force, the solve, the creep stress
+update and its nodal average; each timed pass rebuilds the set-up, so it
+starts from a zero creep state (the work does not depend on the state's
+values). float64 throughout, on the CUDA card.
 
 Each phase is timed on the host clock around a synchronize, after one
 warm-up pass that builds the kernels. Every phase then runs once more under
 torch.profiler for its device time; for the solve the kernels per CG
 iteration, the device-busy share and the table of device time by kernel are
-printed, and with --trace the solve's Chrome trace is written to PATH.
+printed, and with --trace the solve's Chrome trace is written to PATH. With
+--creep a whole step is profiled once more: its device-busy share, its top
+device ops, and the device time of the batched inverses and of the creep
+force's scatter.
 """
 
 import argparse
@@ -126,6 +136,71 @@ def coh_phases(n, dev, config, log):
     ], st
 
 
+def creep_phases(n, dev, config, log):
+    problem = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0,
+                                      t=4.0, dt=1.0)
+    problem.mats = problem.mats.copy()
+    problem.mats[:, 2] = 10.0 * problem.mats[0, 0] / (2.0 * (
+        1.0 + problem.mats[0, 1]))
+    print(f"viscoelastic structured MG-CG: {n}^3 cells, {problem.ndof} DOFs, "
+          f"creep state {problem.nels} x 8 x 6, float64")
+    st = {}
+
+    def creep_rhs():
+        system = st["system"]
+        st.update(F=system.rhs(0.0) + system.creep_force(st["state"],
+                                                         st["moduli"]))
+
+    def creep_update():
+        st.update(state=st["system"].creep_stress_update(
+            st["state"], st["out"].du, st["moduli"]))
+
+    setup = [
+        ("detect", lambda: st.update(spec=structured.detect(problem))),
+        ("system", lambda: st.update(system=System(problem, torch.float64,
+                                                   device=dev))),
+        ("op+mg build", lambda: st.update(step=stepper._setup_structured(
+            st["system"], config, "cg", st["spec"], log))),
+        ("creep state", lambda: st.update(
+            state=st["system"].creep_state_init())),
+    ]
+    step = [
+        ("creep moduli", lambda: st.update(
+            moduli=st["system"].creep_moduli(st["state"]))),
+        ("rhs + creep force", creep_rhs),
+        ("solve", None),
+        ("creep update", creep_update),
+        ("nodal average", lambda: st["system"].nodal_average_state(
+            st["state"])),
+    ]
+    return problem, setup, st, step
+
+
+def creep_step_profile(phases):
+    """One more creep step under torch.profiler: device-busy share, top
+    device ops, and the device time of the inverses and the scatters."""
+    step = [fn for name, fn in phases if name in (
+        "creep moduli", "rhs + creep force", "solve", "creep update",
+        "nodal average")]
+    wall, dev_ms, kernels, prof = device_profile(
+        lambda: [fn() for fn in step])
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def device_ms(*keys):
+        return sum(e.self_device_time_total for e in rows
+                   if any(k in e.key.lower() for k in keys)) / 1e3
+
+    print(f"profiled creep step: wall {wall * 1e3:.2f} ms, device busy "
+          f"{dev_ms:.2f} ms ({100 * dev_ms / 1e3 / wall:.1f}%), {kernels} "
+          f"kernels; batched inverses (cuBLAS getrf / getri / trsm batch "
+          f"kernels) {device_ms('getrf', 'getri', 'trsm'):.2f} "
+          f"ms, index_add / scatter kernels "
+          f"{device_ms('index', 'scatter'):.2f} ms")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=20, max_name_column_width=60))
+
+
 def fine_matvec_pair(system, reps):
     """The fine operator two ways on the same vector: the fused operator
     (the path's) and K3 on the assembled, BC-eliminated matrix in CSR."""
@@ -151,6 +226,8 @@ def main():
                     help="the unstructured SA-AMG path on the permuted box")
     ap.add_argument("--coh", action="store_true",
                     help="the cohesive Newton path on the benchmark strip")
+    ap.add_argument("--creep", action="store_true",
+                    help="one viscoelastic step of the structured box")
     ap.add_argument("--n", type=int, default=None,
                     help="cells per axis (default 80, 55 with --amg, 360 "
                          "along the strip with --coh)")
@@ -168,19 +245,25 @@ def main():
     dev = torch.device("cuda", 0)
     config = Config(device="cuda", solver="cg" if args.coh else "auto")
     msgs = []
-    problem, setup, st = (amg_phases if args.amg else coh_phases if args.coh
-                          else structured_phases)(n, dev, config, msgs.append)
 
     def solve():
         F = st["F"]
         st.update(out=st["step"](F, torch.zeros_like(F), torch.zeros_like(F),
                                  problem.dt))
 
-    phases = setup + [
-        ("rhs", lambda: st.update(F=st["system"].rhs(0.0))),
-        ("solve", solve),
-        ("stress", lambda: st["system"].stress_increment(st["out"].du)),
-    ]
+    if args.creep:
+        problem, setup, st, step = creep_phases(n, dev, config, msgs.append)
+        step = [(name, fn or solve) for name, fn in step]
+    else:
+        problem, setup, st = (amg_phases if args.amg else coh_phases
+                              if args.coh else structured_phases)(
+            n, dev, config, msgs.append)
+        step = [
+            ("rhs", lambda: st.update(F=st["system"].rhs(0.0))),
+            ("solve", solve),
+            ("stress", lambda: st["system"].stress_increment(st["out"].du)),
+        ]
+    phases = setup + step
 
     times = {}
     for rep in range(reps + 1):  # rep 0 builds the kernels: not kept
@@ -218,6 +301,11 @@ def main():
                                     row_limit=15, max_name_column_width=60))
     if args.amg:
         fine_matvec_pair(st["system"], 20)
+    if args.creep:
+        torch.cuda.reset_peak_memory_stats()
+        creep_step_profile(phases)
+        print(f"peak device memory of the profiled step "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)

@@ -73,7 +73,8 @@ Phases, each of which exits non-zero when it fails:
      the direct and the structured MG-CG rows against the CPU (1e-9); then
      the 80^3 box (1,594,323 DOFs) with tau = 10 steps, 4 steps through
      structured_mg_cg with timing and a checkpoint each step: MG-CG
-     iterations (12 +- 1), each step's true relative residual of
+     iterations (12 +- 1 on step 1, no more on the warm-started steps 2-4),
+     each step's true relative residual of
      F + f_creep recomputed with the per-corner form (<= 1e-8), the tip
      deflection against the elastic run's (larger by at least 3/4 of the
      12^3 box's increase on the CPU), a finite creep state, the phase
@@ -94,6 +95,29 @@ Phases, each of which exits non-zero when it fails:
      load(backend="python") block by block; load(backend="auto") calls the
      native engine for each; the CLI with --parser native on the elastic
      golden deck; both parsers' host times on a 200,000-quad strip deck.
+
+ 19. CLI parity: the elastic golden deck through the CLI on cuda with
+     --precond jacobi --solver cg --shards 2; the two shard files hold every
+     element once, u_y 0.05 / 0.10, stress 105 / 245 / 0;
+ 20. the warm start and the W-cycle at full width: the 80^3 box over 3 equal
+     load steps through structured_mg_cg (step 1 takes 12 +- 1 iterations,
+     steps 2-3 no more; each step's true residual <= 1e-8), then one solve of
+     the box with a gamma = 2 hierarchy beside gamma = 1: iterations, wall
+     (median of 5), K2 launches;
+ 21. the refinement measurement: the stepper's float64 MG-CG solve of the
+     80^3 box against solver/mixed.ir_solve with the float32 stencil operator
+     and a float32 hierarchy, both to a true relative residual <= 1e-9,
+     in turns: wall (median of 7 with the spread), device time
+     (torch.profiler), iterations, K2 launches by dtype; one JSON line with
+     the verdict;
+ 22. the element-sharded rows, FEM_TPU_TORCH_VIRTUAL_DEVICES=4 set here and
+     4 shards on this one card (their wall says nothing about scaling):
+     (a) ShardedOperator.matvec and diag against System.matvec / diag on the
+     permuted 55^3 box (1e-12), one all-reduce of ndof * 8 bytes per K.u by
+     commcount; (b) stepper.run(n_devices=4) on that box through
+     sharded_amg_cg: phase 9's iteration count (+-1, printed), u to 1e-9,
+     true residual <= 1e-8, K3 launched; (c) the node-permuted cohesive
+     strip with n_devices=4: phase 13's Newton counts, u to 1e-8.
 Each kernel's "launches" in the summary is the count of its main path's
 run ("launches_path": the 80^3 elastic run for K1 and K2, the 55^3 SA-AMG
 run for K3); "launches_by_path" gives every counted run's own count.
@@ -344,17 +368,7 @@ def phase14_creep(torch, dev, n_big, ck_dir):
     big = creep_box(n_big, 10.0 * G_BOX, 1.0)
     steps = []  # (F + f_creep, du) of each step
     saves = []  # (path, bytes, seconds) of each checkpoint
-    setup, save = stepper._SETUP["structured_mg_cg"], checkpoint.save
-
-    def recording_setup(*args):
-        step = setup(*args)
-
-        def recorded(F, du_prev, aggregate_u, t_end):
-            inc = step(F, du_prev, aggregate_u, t_end)
-            steps.append((F, inc.du))
-            return inc
-
-        return recorded
+    save = checkpoint.save
 
     def timed_save(*args, **kw):
         t0 = time.perf_counter()
@@ -362,7 +376,7 @@ def phase14_creep(torch, dev, n_big, ck_dir):
         saves.append((path, os.path.getsize(path), time.perf_counter() - t0))
         return path
 
-    stepper._SETUP["structured_mg_cg"] = recording_setup
+    setup = recorded_steps(stepper, "structured_mg_cg", steps)
     checkpoint.save = timed_save
     msgs = []
     torch.cuda.synchronize()
@@ -404,8 +418,11 @@ def phase14_creep(torch, dev, n_big, ck_dir):
     print("creep: per step: " + ", ".join(
         f"{name} {1e3 * tm.totals[name] / tm.counts[name]:.2f} ms"
         for name in ("rhs", "solve", "stress")), flush=True)
-    check(all(abs(i - 12) <= 1 for i in res.krylov_iters),
-          f"80^3 creep MG-CG iterations {res.krylov_iters}, not 12 +- 1")
+    # each step starts from the last increment: step 1 is the cold count
+    check(abs(res.krylov_iters[0] - 12) <= 1
+          and all(0 < i <= res.krylov_iters[0] for i in res.krylov_iters[1:]),
+          f"80^3 creep MG-CG iterations {res.krylov_iters}: step 1 not "
+          f"12 +- 1, or a warm-started step took more")
     check(max(rels) <= 1e-8, f"80^3 creep true residuals {rels}")
     check(tip / tip_el - 1.0 >= 0.75 * (ratio12 - 1.0),
           f"80^3 creep deflection ratio {tip / tip_el} below the margin")
@@ -633,6 +650,389 @@ def phase17_gradients(torch, dev, k1_inputs):
     else:
         fail("a coordinate gradient through K1 on cuda did not raise")
     return {"hex8_stiffness": launches, "stencil_matvec": k2_launches}
+
+
+def recorded_steps(stepper, row, steps):
+    """stepper._SETUP[row] wrapped so that every step's (F, du) is appended
+    to `steps`; returns the original set-up, to be put back."""
+    setup = stepper._SETUP[row]
+
+    def recording_setup(*args):
+        step = setup(*args)
+
+        def recorded(F, du_prev, aggregate_u, t_end):
+            inc = step(F, du_prev, aggregate_u, t_end)
+            steps.append((F, inc.du))
+            return inc
+
+        return recorded
+
+    stepper._SETUP[row] = recording_setup
+    return setup
+
+
+def sync_wall(torch, fn):
+    """(fn(), host seconds) with the card drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tally_k2(ck, key):
+    """Count K2's calls by key(tables, u) around the wrapper; returns the
+    tally and a function that puts the wrapper back."""
+    tally = {}
+    wrapper = ck.stencil_matvec
+
+    def counted(t, u):
+        k = key(t, u)
+        tally[k] = tally.get(k, 0) + 1
+        return wrapper(t, u)
+
+    ck.stencil_matvec = counted
+
+    def restore():
+        ck.stencil_matvec = wrapper
+
+    return tally, restore
+
+
+def phase19_cli_shards(cli_main, vtk):
+    """Phase 19: --precond / --shards through the CLI on the card."""
+    import numpy as np
+
+    deck = "examples/ref/SNES_test/elastic/elastic_test.inp"
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = cli_main(["-f", deck, "--device", "cuda", "-q", "--precond",
+                       "jacobi", "--solver", "cg", "--shards", "2",
+                       "-o", f"{tmp}/"])
+        check(rc == 0, f"CLI --shards 2 exited {rc}")
+        cells = 0
+        for rank in range(2):
+            path = f"{tmp}/{rank}_output_000000.vtk"
+            pts, stress, disp = vtk.read_fields(path)
+            with open(path) as f:
+                cells += sum(1 for line in f if line.startswith("4 "))
+            for y, uy in ((2.0, 0.1), (1.0, 0.05), (0.0, 0.0)):
+                rows = pts[:, 1] == y
+                check(np.allclose(disp[rows, 1], uy, atol=1e-9),
+                      f"shard {rank} u_y at y={y}: {disp[rows, 1]}")
+            check(np.allclose(stress[:, :2], [105.0, 245.0], atol=1e-5)
+                  and np.allclose(stress[:, 2], 0.0, atol=1e-5),
+                  f"shard {rank} stress: {stress}")
+    check(cells == 2, f"the shard files hold {cells} elements, not 2")
+    print("CLI --precond jacobi --solver cg --shards 2 on cuda: 2 shard "
+          "files, every element once, u_y 0.05/0.10, stress 105/245/0 ok",
+          flush=True)
+
+
+def phase20_warm_wcycle(torch, dev, n):
+    """Phase 20: the warm-started 3-step 80^3 run, then a gamma = 2 solve
+    beside a gamma = 1 one. Returns the launches of the run and of one
+    W-cycle solve."""
+    import statistics
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.solver import cg, multigrid, stepper
+
+    box3 = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0, E=200e9,
+                                   nu=0.3, tip_load=-1e6, t=3.0, dt=1.0)
+    steps = []
+    setup = recorded_steps(stepper, "structured_mg_cg", steps)
+    ck.reset_launches()
+    try:
+        res, wall = sync_wall(torch, lambda: stepper.run(
+            box3, Config(device="cuda")))
+    finally:
+        stepper._SETUP["structured_mg_cg"] = setup
+    launches = dict(ck.launches)
+    system, op, rel = structured_box(torch, dev, box3)
+    rels = [rel(F, du) for F, du in steps]
+    del steps
+    print(f"warm start: {n}^3 box ({box3.ndof} DOFs, float64), 3 equal load "
+          f"steps through {res.path}: MG-CG iterations {res.krylov_iters}, "
+          f"true rel residuals {['%.3e' % x for x in rels]}, stepper.run "
+          f"wall {wall:.2f} s, launches {launches}", flush=True)
+    its = res.krylov_iters
+    check(res.path == "structured_mg_cg", f"3-step box took {res.path}")
+    check(len(its) == 3 and abs(its[0] - 12) <= 1
+          and all(i <= its[0] for i in its[1:]),
+          f"3-step box MG-CG iterations {its}: step 1 not 12 +- 1, or a "
+          f"warm-started step took more")
+    check(max(rels) <= 1e-8, f"3-step box true residuals {rels}")
+
+    # one solve with the V-cycle and the W-cycle, as the stepper's row runs
+    # it: the same operator, mask and right-hand side
+    mask = torch.zeros(box3.ndof, dtype=torch.bool, device=dev)
+    mask[system.bc_dofs] = True
+    raw = lambda v: structured.matvec(op, v)  # noqa: E731
+    masked = cg.masked_operator(raw, mask)
+    F = system.rhs(0.0)
+    b = cg.constrained_rhs(raw, F, mask, torch.zeros_like(F))
+    out = {}
+    for gamma in (1, 2):
+        hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev",
+                               gamma=gamma)
+
+        def solve():
+            return cg.pcg(masked, b, precond=multigrid.preconditioner(hier),
+                          rtol=1e-9, maxiter=400)
+
+        solve()
+        ck.reset_launches()
+        r = solve()
+        k2 = ck.launches["stencil_matvec"]
+        walls = [sync_wall(torch, solve)[1] for _ in range(5)]
+        out[gamma] = dict(iters=r.iters, k2=k2, rel=rel(F, r.x),
+                          wall_ms=1e3 * statistics.median(walls),
+                          lo=1e3 * min(walls), hi=1e3 * max(walls))
+        del hier
+    for gamma, m in out.items():
+        print(f"{'W' if gamma == 2 else 'V'}-cycle (gamma {gamma}) MG-CG on "
+              f"the {n}^3 box: {m['iters']} iterations, true rel residual "
+              f"{m['rel']:.3e}, solve wall {m['wall_ms']:.2f} ms (median of "
+              f"5, {m['lo']:.2f}-{m['hi']:.2f}), K2 launches {m['k2']}",
+              flush=True)
+    check(max(m["rel"] for m in out.values()) <= 1e-8,
+          "a V- or W-cycle solve missed its residual")
+    check(out[2]["iters"] <= out[1]["iters"],
+          f"the W-cycle took more iterations: {out}")
+    check(out[2]["k2"] > out[1]["k2"] > 0, f"K2 launches {out}")
+    return launches, {"stencil_matvec": out[2]["k2"]}
+
+
+def phase21_refinement(torch, dev, n, reps=7):
+    """Phase 21: float64 MG-CG against f32-inner / f64-refinement on the
+    n^3 box, both to a true relative residual <= 1e-9. Returns the launches
+    of one solve of each side."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.solver import cg, mixed, multigrid
+
+    box = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0, E=200e9,
+                                  nu=0.3, tip_load=-1e6)
+    system, op64, rel = structured_box(torch, dev, box)
+    F = system.rhs(0.0)
+    bc, vals = system.bc_dofs, system.bc_step_vals()
+    mask = torch.zeros(box.ndof, dtype=torch.bool, device=dev)
+    mask[bc] = True
+    raw = lambda v: structured.matvec(op64, v)  # noqa: E731
+    masked = cg.masked_operator(raw, mask)
+    b = cg.constrained_rhs(raw, F, mask, torch.zeros_like(F))
+    h64 = multigrid.build(op64, bc, smoother="chebyshev")
+    op32 = op64.astype(torch.float32)
+    h32 = multigrid.build(op32, bc, smoother="chebyshev")
+    d32 = structured.diag(op32)
+
+    rtol64 = [1e-9]
+
+    def solve64():
+        # the structured row's solve (stepper._setup_structured)
+        r = cg.pcg(masked, b, precond=multigrid.preconditioner(h64),
+                   rtol=rtol64[0], maxiter=400)
+        return r.x, dict(iters=r.iters, rtol=rtol64[0])
+
+    # CG stops on its recurrence residual: tighten it until the true one,
+    # which both sides are held to, is <= 1e-9
+    while rel(F, solve64()[0]) > 1e-9 and rtol64[0] > 1e-10:
+        rtol64[0] *= 0.5
+
+    def solve_ir(inner_rtol):
+        def solve():
+            r = mixed.ir_solve(op64, op32, F, d32, bc, vals, rtol=1e-9,
+                               inner_rtol=inner_rtol,
+                               apply=structured.matvec,
+                               precond32=multigrid.preconditioner(h32))
+            return r.x, dict(iters=r.inner_iters, outer=r.outer_iters)
+        return solve
+
+    sides = {"float64": solve64}
+    for inner_rtol in (1e-3, 1e-4, 1e-5):
+        sides[f"ir_{inner_rtol:.0e}"] = solve_ir(inner_rtol)
+    out = {name: dict(walls=[]) for name in sides}
+    launches = {}
+    for name, fn in sides.items():
+        fn()  # warm-up
+        tally, restore = tally_k2(ck, lambda t, u: str(u.dtype)[6:])
+        ck.reset_launches()
+        try:
+            x, counts = fn()
+        finally:
+            restore()
+        launches[name] = dict(ck.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync_wall(torch, fn)
+        dev_rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[name].update(
+            counts, true_rel=rel(F, x), k2_by_dtype=tally,
+            device_ms=sum(e.self_device_time_total for e in dev_rows) / 1e3,
+            kernels=sum(e.count for e in dev_rows))
+    # walls in turns: every side once, then in reverse, and again
+    order = list(sides)
+    for i in range(reps):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            out[name]["walls"].append(1e3 * sync_wall(torch, sides[name])[1])
+    for m in out.values():
+        walls = m.pop("walls")
+        m.update(wall_ms=statistics.median(walls), wall_min_ms=min(walls),
+                 wall_max_ms=max(walls))
+    best = min((k for k in out if k != "float64"),
+               key=lambda k: out[k]["wall_ms"])
+    faster = out[best]["wall_max_ms"] < out["float64"]["wall_min_ms"]
+    print(json.dumps({"refinement": {
+        "box": f"{n}^3", "ndof": box.ndof, "reps": reps, "sides": out,
+        "best_refinement": best,
+        "refinement_faster_beyond_spread": faster,
+        "verdict": ("refinement faster: the structured row should take it"
+                    if faster else
+                    "refinement not faster: no stepper row takes it")}}),
+          flush=True)
+    for name, m in out.items():
+        check(m["true_rel"] <= 1.01e-9,
+              f"refinement measurement: {name} true rel residual "
+              f"{m['true_rel']}")
+    check(out["float64"]["k2_by_dtype"].get("float32", 0) == 0
+          and out[best]["k2_by_dtype"].get("float32", 0) > 0,
+          f"K2 launches by dtype: {out}")
+    # the code follows the verdict: the structured row solves in float64
+    check(not faster, "refinement measured faster beyond the spread, and "
+          "the structured row does not take it")
+    return launches["float64"], launches[best]
+
+
+def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
+                    true_rel_residual):
+    """Phase 22: the element-sharded rows, 4 shards on this one card.
+    Returns the launches of the sharded SA-AMG run and the sharded strip."""
+    import os
+
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import operator
+    from fem_tpu_torch.parallel import commcount
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.parallel.ops import ShardedOperator
+    from fem_tpu_torch.solver import amg, stepper
+
+    # in the open: more shards than cards, laid round-robin over the cards
+    os.environ[mesh_mod.VIRTUAL_ENV] = "4"
+    mesh = mesh_mod.make_mesh(4, device="cuda")
+    label = mesh.describe()
+    print(f"sharded: {mesh_mod.VIRTUAL_ENV}=4, {label}", flush=True)
+    check(mesh.size == 4, f"the mesh has {mesh.size} shards")
+
+    # (a) the operator
+    system = System(perm55, torch.float64, device=dev)
+    sop = ShardedOperator(system, mesh)
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        system.ndof), device=dev)
+    ref = system.matvec(u)
+    got = sop.matvec(u)
+    e_mv = float((got - ref).abs().max() / ref.abs().max())
+    d_ref = system.diag()
+    e_dg = float((sop.diag() - d_ref).abs().max() / d_ref.abs().max())
+    cols = commcount.collectives(sop.matvec, u)
+    print("  " + commcount.summary("element-sharded K.u", cols), flush=True)
+    ar = [c for c in cols if c[0] == "all_reduce_sum"]
+    fop = operator.build(system)
+    t_shd = time_ms(torch, lambda: sop.matvec(u), 20)
+    t_one = time_ms(torch, lambda: operator.matvec(fop, u), 20)
+    print(f"sharded K.u on the permuted 55^3 box ({system.ndof} DOFs): rel "
+          f"diff vs System.matvec {e_mv:.3e}, diag {e_dg:.3e} (tol 1e-12); "
+          f"{label}: {t_shd:.4f} ms per K.u against the fused operator's "
+          f"{t_one:.4f} ms on the card alone (no scaling statement)",
+          flush=True)
+    check(e_mv <= 1e-12 and e_dg <= 1e-12,
+          f"sharded operator differs: matvec {e_mv}, diag {e_dg}")
+    check(len(ar) == 1 and ar[0][1] == (system.ndof,)
+          and ar[0][2] == system.ndof * 8,
+          f"sharded K.u collectives: {cols}")
+    del sop, fop, ref, got, d_ref
+
+    # (b) the sharded SA-AMG row
+    ck.reset_launches()
+    msgs, out = [], {}
+    cols = commcount.collectives(lambda: out.update(run=sync_wall(
+        torch, lambda: stepper.run(perm55, Config(device="cuda", n_devices=4),
+                                   log=msgs.append))))
+    res, wall = out["run"]
+    launches_amg = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    ar = [c[2] for c in cols if c[0] == "all_reduce_sum"]
+    n_ar, b_ar = len(ar), sum(ar)
+    rel_u = float(np.abs(res.aggregate_u - res9.aggregate_u).max()
+                  / np.abs(res9.aggregate_u).max())
+    true_rel = true_rel_residual(
+        system, amg.assemble_csr(system),
+        torch.as_tensor(res.aggregate_u, device=dev))
+    print(f"sharded SA-AMG, permuted 55^3 box, {label}: path {res.path}, "
+          f"iterations {res.krylov_iters} (single device "
+          f"{res9.krylov_iters}), max |du| / max |u| vs the single-device "
+          f"run {rel_u:.3e} (tol 1e-9), true rel residual {true_rel:.3e}, "
+          f"{n_ar} all-reduces of {b_ar // n_ar} bytes, stepper.run wall "
+          f"{wall:.2f} s, launches {launches_amg}", flush=True)
+    check(res.path == "sharded_amg_cg", f"sharded 55^3 took {res.path}")
+    check(len(res.krylov_iters) == len(res9.krylov_iters)
+          and all(abs(a - b) <= 1 for a, b in zip(res.krylov_iters,
+                                                  res9.krylov_iters)),
+          f"sharded iterations {res.krylov_iters} vs {res9.krylov_iters}")
+    check(rel_u <= 1e-9, f"sharded 55^3 u differs by {rel_u}")
+    check(true_rel <= 1e-8, f"sharded 55^3 true rel residual {true_rel}")
+    check(launches_amg["csr_matvec"] > 0 and launches_amg["hex8_stiffness"]
+          > 0, "the sharded SA-AMG run launched no K3 or no K1")
+    check(b_ar == n_ar * system.ndof * 8, "an all-reduce of another size")
+    del system
+
+    # (c) the sharded matrix-free Newton
+    ck.reset_launches()
+    msgs = []
+    cols = commcount.collectives(lambda: out.update(run=sync_wall(
+        torch, lambda: stepper.run(
+            pstrip, Config(device="cuda", solver="cg", n_devices=4),
+            log=msgs.append))))
+    res, wall = out["run"]
+    launches_coh = dict(ck.launches)
+    rel_u = float(np.abs(res.aggregate_u - res13.aggregate_u).max()
+                  / np.abs(res13.aggregate_u).max())
+    print(f"sharded Newton, permuted cohesive strip ({pstrip.ndof} DOFs), "
+          f"{label}: Newton iterations {res.newton_iters} (single device "
+          f"{res13.newton_iters}), inner {res.krylov_iters} "
+          f"({res13.krylov_iters}), GMRES fallbacks {res.gmres_fallbacks}, "
+          f"max |du| / max |u| {rel_u:.3e} (tol 1e-8), "
+          f"{sum(c[0] == 'all_reduce_sum' for c in cols)} all-reduces, "
+          f"stepper.run wall {wall:.2f} s, launches {launches_coh}",
+          flush=True)
+    check(any("Nonlinear path" in m for m in msgs)
+          and any("element-sharded" in m for m in msgs),
+          "the strip's elastic operator was not sharded")
+    check(all(res.newton_converged)
+          and res.newton_iters == res13.newton_iters,
+          f"sharded Newton iterations {res.newton_iters} vs "
+          f"{res13.newton_iters}")
+    check(all(abs(a - b) <= 2 for a, b in zip(res.krylov_iters,
+                                              res13.krylov_iters)),
+          f"sharded inner iterations {res.krylov_iters} vs "
+          f"{res13.krylov_iters}")
+    check(rel_u <= 1e-8, f"sharded strip u differs by {rel_u}")
+    check(launches_coh["csr_matvec"] > 0, "the sharded Newton launched no K3")
+    return launches_amg, launches_coh
 
 
 def same(a, b, path="deck"):
@@ -964,21 +1364,14 @@ def main():
     check(big.ndof == 1594323, f"80^3 box has {big.ndof} DOFs")
     torch.cuda.synchronize()
     # K2's calls by node grid (MG level), tallied around the wrapper
-    k2_by_grid = {}
-    k2_wrapper = ck.stencil_matvec
-
-    def k2_tally(t, v):
-        k2_by_grid[t.shape] = k2_by_grid.get(t.shape, 0) + 1
-        return k2_wrapper(t, v)
-
-    ck.stencil_matvec = k2_tally
+    k2_by_grid, restore_k2 = tally_k2(ck, lambda t, u: t.shape)
     ck.reset_launches()
     t0 = time.perf_counter()
     try:
         res = stepper.run(big, Config(device="cuda"))
         torch.cuda.synchronize()
     finally:
-        ck.stencil_matvec = k2_wrapper
+        restore_k2()
     wall = time.perf_counter() - t0
     launches = dict(ck.launches)
     print(f"80^3 box: K2 calls by node grid {k2_by_grid}", flush=True)
@@ -1108,13 +1501,6 @@ def main():
         check(p.ndof == 526848, f"55^3 box has {p.ndof} DOFs")
         return p
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     def true_rel_residual(system, A_csr, u):
         """||b - K u|| / ||b|| of the masked system, K from assemble_csr as
         a torch sparse CSR product on the card (a check, not the path)."""
@@ -1134,11 +1520,12 @@ def main():
         return float(torch.linalg.norm(r) / torch.linalg.norm(b))
 
     perm = box55(permute=True)
-    system, t_sys = timed(lambda: System(perm, torch.float64, device=dev))
-    A_csr, t_asm = timed(lambda: amg.assemble_csr(system))
-    hier, t_amg = timed(lambda: amg.build(system, system.bc_dofs,
-                                          coarse_max=20000, A=A_csr))
-    _, t_op = timed(lambda: operator.build(system))
+    system, t_sys = sync_wall(torch, lambda: System(perm, torch.float64,
+                                                    device=dev))
+    A_csr, t_asm = sync_wall(torch, lambda: amg.assemble_csr(system))
+    hier, t_amg = sync_wall(torch, lambda: amg.build(
+        system, system.bc_dofs, coarse_max=20000, A=A_csr))
+    _, t_op = sync_wall(torch, lambda: operator.build(system))
     sizes = [system.ndof] + [lv.n_coarse for lv in hier.levels[:-1]]
     print(f"permuted 55^3 box ({perm.ndof} DOFs) set-up on the host: System "
           f"{t_sys:.2f} s, assemble_csr {t_asm:.2f} s ({A_csr.nnz} nonzeros), "
@@ -1154,8 +1541,8 @@ def main():
 
     ck.reset_launches()
     msgs = []
-    res, wall = timed(lambda: stepper.run(perm, Config(device="cuda"),
-                                          log=msgs.append))
+    res, wall = sync_wall(torch, lambda: stepper.run(
+        perm, Config(device="cuda"), log=msgs.append))
     launches_amg = dict(ck.launches)
     for m in msgs:
         if "Interval" not in m:
@@ -1180,14 +1567,15 @@ def main():
     check(true_rel <= 1e-8, f"permuted 55^3 true rel residual {true_rel}")
     for name in ("hex8_stiffness", "csr_matvec"):
         check(launches_amg[name] > 0, f"the SA-AMG run launched no {name}")
+    perm55, res9 = perm, res  # phase 22 shards this run
     del system, A_csr, u
 
     # 10. the lex-ordered 55^3 box: block stencil + lattice GMG
     lex = box55(permute=False)
     ck.reset_launches()
     msgs = []
-    res, wall = timed(lambda: stepper.run(lex, Config(device="cuda"),
-                                          log=msgs.append))
+    res, wall = sync_wall(torch, lambda: stepper.run(
+        lex, Config(device="cuda"), log=msgs.append))
     launches_gmg = dict(ck.launches)
     for m in msgs:
         if "Interval" not in m:
@@ -1310,7 +1698,7 @@ def main():
     def run_strip(problem, label):
         ck.reset_launches()
         msgs = []
-        res, wall = timed(lambda: stepper.run(
+        res, wall = sync_wall(torch, lambda: stepper.run(
             problem, Config(device="cuda", solver="cg"), log=msgs.append))
         launches_run = dict(ck.launches)
         for m in msgs:
@@ -1410,6 +1798,15 @@ def main():
     launches_grad = phase17_gradients(torch, dev, k1_inputs)
     # 18. the native parser
     phase18_native(cli_main)
+    # 19. --precond / --shards through the CLI
+    phase19_cli_shards(cli_main, vtk)
+    # 20. the warm start and the W-cycle at 80^3
+    launches_warm, launches_w = phase20_warm_wcycle(torch, dev, 80)
+    # 21. float64 MG-CG against f32-inner / f64-refinement at 80^3
+    launches_f64, launches_ir = phase21_refinement(torch, dev, 80)
+    # 22. the element-sharded rows, 4 shards on this card
+    launches_shd_amg, launches_shd_coh = phase22_sharded(
+        torch, dev, perm55, res9, pstrip, res13, true_rel_residual)
 
     summary["csr_matvec"] = k3_real
     # each path's own launches, each counted from 0 just before its run
@@ -1417,7 +1814,11 @@ def main():
             "elastic_80": launches, "amg_55": launches_amg,
             "gmg_55": launches_gmg, "coh_strip_gmg": launches_strip,
             "coh_strip_amg": launches_coh, "creep_80": launches14,
-            "resume_80": launches15, "gradients": launches_grad}
+            "resume_80": launches15, "gradients": launches_grad,
+            "warm_3step_80": launches_warm, "wcycle_solve_80": launches_w,
+            "solve_f64_80": launches_f64, "solve_refined_80": launches_ir,
+            "sharded_amg_55": launches_shd_amg,
+            "sharded_coh_strip_amg": launches_shd_coh}
     # "launches" is the count of the kernel's main path: the 80^3 elastic
     # run for K1 and K2, the 55^3 SA-AMG run for K3
     main_path = {"hex8_stiffness": "elastic_80",

@@ -1,10 +1,13 @@
 """Command-line driver: `python -m fem_tpu_torch -f <deck.inp> [--device cpu]`.
 
-Port of `fem_tpu/cli.py` (`:45-55,78,88-108`; single device: `--devices`
-and `--shards` wait for ROADMAP A.9). Mirrors the reference CLI
-`defmod -f <file>` (main.F90:31-33) and writes `0_output_000000.vtk` in the
-working directory like the reference's rank-0 writer (m_io.F90:496). Runs on
-the CUDA device by default; `--device cpu` asks for the CPU.
+Port of `fem_tpu/cli.py`. Mirrors the reference CLI
+`mpiexec -n <cores> defmod -f <file>` (main.F90:31-33): `--devices N` shards
+the iterative solve's elastic operator by elements over N devices
+(parallel/ops.py), `--shards N` writes one `<rank>_output_000000.vtk` per RCB
+shard like the reference's per-rank writers; otherwise `0_output_000000.vtk`
+is written in the working directory like the reference's rank-0 writer
+(m_io.F90:496). Runs on the CUDA device by default; `--device cpu` asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"])
+    ap.add_argument(
+        "--precond", default="auto", choices=["auto", "jacobi", "amg"],
+        help="preconditioner for the iterative unstructured path "
+        "(auto: AMG at scale)",
+    )
     ap.add_argument(
         "--bc-mode", default="auto", choices=["auto", "penalty", "eliminate"]
     )
@@ -53,6 +61,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parser", default="auto",
                     choices=["auto", "python", "native"],
                     help="deck parser backend")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shard the iterative linear solve over N devices "
+                         "(the reference's mpiexec -n N; 0 = single device)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="write N per-shard VTK files (RCB partition), "
+                         "mirroring the reference's per-MPI-rank output")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
 
@@ -84,25 +98,34 @@ def main(argv=None) -> int:
         dtype=args.dtype,
         solver=args.solver,
         bc_mode=args.bc_mode,
+        precond=args.precond,
         plane_stress=args.plane_stress,
         quirks=args.quirks,
         formulation=args.formulation,
         checkpoint_dir=args.checkpoint_dir,
         resume=not args.no_resume,
         profile_dir=args.profile_dir,
+        n_devices=args.devices if args.devices > 1 else None,
         timing=args.timing,
     )
     log("Forming [K] ...")
     t0 = time.perf_counter()
     result = stepper.run(problem, config, log=log)
     log(f"Solved {result.nsteps} step(s) in {time.perf_counter() - t0:.3f}s")
-    vtk.write(
-        f"{args.output_prefix}0_output_000000.vtk",
-        problem.coords,
-        vtk.cells_in_deck_order(problem),
-        result.aggregate_stress,
-        result.aggregate_u,
-    )
+    if args.shards > 1:
+        from fem_tpu_torch.parallel import partition
+
+        partition.write_sharded_vtk(
+            problem, result.aggregate_stress, result.aggregate_u,
+            args.shards, prefix=args.output_prefix)
+    else:
+        vtk.write(
+            f"{args.output_prefix}0_output_000000.vtk",
+            problem.coords,
+            vtk.cells_in_deck_order(problem),
+            result.aggregate_stress,
+            result.aggregate_u,
+        )
     log("Finished")
     return 0
 

@@ -5,9 +5,7 @@ Mirrors the reference's two config layers (SURVEY.md §5): the .inp deck header
 definition, while this Config carries solver/runtime knobs that the reference
 exposed through PETSc runtime options (main.F90:206,377).
 
-Port of `fem_tpu/config.py`. Its multi-device option is still accepted as
-a field, and setting it raises NotImplementedError naming the ROADMAP item
-that ports it.
+Port of `fem_tpu/config.py`.
 """
 
 from __future__ import annotations
@@ -25,8 +23,9 @@ class Config:
     Attributes:
       device: "cuda" (default) or "cpu". CUDA requested on a machine without
         it raises; nothing falls back to the CPU.
-      dtype: "float64" (default; the H100 has native FP64, so there is no
-        f32-inner/f64-refinement split) or "float32".
+      dtype: "float64" (default; the H100 has native FP64, and the
+        f32-inner/f64-refinement split of solver/mixed.py, measured, is no
+        faster there, so no stepper row takes it) or "float32".
       solver: "direct" (dense LU; the MUMPS stand-in for small n), "cg"
         (matrix-free PCG), or "auto" (direct up to `direct_threshold` DOFs).
       rtol / atol / maxiter: Krylov tolerances (reference rtol 1e-9,
@@ -73,7 +72,13 @@ class Config:
       timing: log per-phase wall-clock totals (setup / rhs / solve or
         newton / stress) after the run; on a CUDA run each phase then ends
         with a device synchronize, so it holds its device time.
-      n_devices: more than 1 is not ported yet (ROADMAP A.9).
+      n_devices: shard the iterative solve's elastic operator by elements
+        over this many devices (parallel/ops.py; the reference's
+        `mpiexec -n N`). Unstructured and cohesive decks take it; direct
+        solves, formulation "total" and explicit runs ignore it; structured
+        boxes and lex-lattice AMG decks, whose DOF-sharded tiers are not
+        ported yet (ROADMAP A.9), raise NotImplementedError from the
+        stepper's path table.
     """
 
     device: str = "cuda"
@@ -105,10 +110,6 @@ class Config:
     n_devices: Optional[int] = None
 
     def __post_init__(self):
-        if self.n_devices is not None and self.n_devices > 1:
-            raise NotImplementedError(
-                "multi-device runs (n_devices > 1) are not ported yet "
-                "(ROADMAP A.9)")
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
         if self.dtype not in ("float64", "float32"):

@@ -18,8 +18,9 @@ are skipped. The legacy 7-count header (examples/SNES_test/*, which predates
 the cohesive-material split — SURVEY.md §2d.8) is auto-detected: ncohmats=0
 and element lines without the trailing nlMat column are accepted.
 
-Numpy copy of `fem_tpu.io.inp` (the pure-Python parser; the ctypes binding
-to the native C++ mesh engine is not ported yet).
+Numpy copy of `fem_tpu.io.inp`, the pure-Python parser; the ctypes binding
+to the native C++ mesh engine is `io/native.py`, whose `parse` returns the
+same Deck.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ backend-neutral host code and is shared by both packages as it is. It covers
 the reference's host-side native roles — deck parsing (m_io.F90), METIS
 partitioning (m_io.F90:137), element (re)ordering — with host-side
 replacements (a flat-array parser, Morton ordering, RCB partitioning).
-`available()` is False when the library has not been built; every other
-function then raises RuntimeError (fem_tpu's morton_order / rcb_partition
-keep pure-Python forms for that case, which the port does not carry).
+`available()` is False when the library has not been built; the parser and
+morton_order then raise RuntimeError, and rcb_partition (the `--shards`
+writer's partitioner) takes its numpy form, as fem_tpu's does.
 
 Build with `make -C native` (plain C ABI, bound with ctypes).
 """
@@ -193,8 +193,14 @@ def morton_order(centroids: np.ndarray) -> np.ndarray:
 
 
 def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
-    """Equal-count recursive coordinate bisection (METIS replacement)."""
-    lib = _require()
+    """Equal-count recursive coordinate bisection (METIS replacement): split
+    the widest axis at the element count's share, recursively. The numpy
+    form, taken only when the library is not built, gives the library's
+    parts wherever no two centroids tie on a split coordinate at the cut
+    (there the library's std::nth_element is free to put either first)."""
+    lib = _load()
+    if lib is None:
+        return _rcb_partition_numpy(centroids, nparts)
     ne, pdim = centroids.shape
     c = np.ascontiguousarray(centroids, dtype=np.float64)
     out = np.empty(ne, dtype=np.int32)
@@ -202,4 +208,26 @@ def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
         c.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), ne, pdim, nparts,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
+    return out
+
+
+def _rcb_partition_numpy(centroids: np.ndarray, nparts: int) -> np.ndarray:
+    """rcb_partition without the library (femmesh.cpp's rcb_recurse): the
+    first axis of the widest extent, `len * left // nparts` elements to the
+    left, by a stable sort."""
+    c = np.ascontiguousarray(centroids, dtype=np.float64)
+    out = np.empty(c.shape[0], dtype=np.int32)
+
+    def rec(ids, part_lo, n_parts):
+        if n_parts <= 1:
+            out[ids] = part_lo
+            return
+        axis = int(np.argmax(c[ids].max(axis=0) - c[ids].min(axis=0)))
+        left = n_parts // 2
+        k = len(ids) * left // n_parts
+        ids = ids[np.argsort(c[ids, axis], kind="stable")]
+        rec(ids[:k], part_lo, left)
+        rec(ids[k:], part_lo + left, n_parts - left)
+
+    rec(np.arange(c.shape[0]), 0, nparts)
     return out

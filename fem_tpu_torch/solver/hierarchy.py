@@ -38,18 +38,21 @@ class FineAndHierarchy(NamedTuple):
 
 
 def build(system, A_el, A_hier=None, gmg_min: int = 0,
-          coarse_max: int = 1200) -> FineAndHierarchy:
+          coarse_max: int = 1200,
+          fine: Optional[Callable] = None) -> FineAndHierarchy:
     """The fine operator of `A_el` and the hierarchy of `A_hier` (default
-    `A_el`); `coarse_max` is SA-AMG's dense coarse size."""
+    `A_el`); `coarse_max` is SA-AMG's dense coarse size. A given `fine`
+    (the element-sharded K_el v of a multi-device run) is kept as the fine
+    operator; the hierarchy is chosen as without it."""
     dtype, dev = system.dtype, system.device
     pdim, n = system.pdim, system.ndof
     A_hier = A_el if A_hier is None else A_hier
     t0 = time.perf_counter()
     dims = blockstencil.detect(A_el, pdim, n // pdim)
-    if dims is not None:
+    if fine is None and dims is not None:
         bop = blockstencil.build(A_el, pdim, dims, dtype=dtype, device=dev)
         fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
-    else:
+    elif fine is None:
         fop = operator.build(system)
         fine = lambda v: operator.matvec(fop, v)  # noqa: E731
     t_op = time.perf_counter() - t0

@@ -46,6 +46,11 @@ class MGHierarchy:
     # instead of nu damped-Jacobi sweeps (~2x fewer 3D MG-CG iterations)
     smoother: str = "jacobi"
     degree: int = 3
+    # gamma=2 runs a W-cycle: the coarse correction at every level is applied
+    # twice with a residual update in between (B_W = 2B - B A B, symmetric
+    # when B is, so still a valid CG preconditioner). The fine level's cost
+    # is unchanged; level idx is visited about 2^idx times as often.
+    gamma: int = 1
 
 
 def _pool2(field):
@@ -84,13 +89,15 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
           min_cells: int = 2,
           nu_pre: int = 2, nu_post: int = 2, omega: float = 0.67,
           max_levels: int = 32, smoother: str = "jacobi",
-          degree: int = 3, lb_frac: float = 30.0) -> MGHierarchy:
+          degree: int = 3, lb_frac: float = 30.0,
+          gamma: int = 1) -> MGHierarchy:
     """Build the hierarchy from the fine stencil operator and the constrained
     dof list. Coarsening halves each axis while all cell counts are even and
     > min_cells; a box element of sizes 2h has k = 2^(pdim-2) k(h), so the
     coarse operators scale the parent's k_lam/k_mu. smoother="chebyshev"
     estimates each level's D^-1 A spectrum by power iteration; lb_frac sets
-    the interval's lower end, lambda_max / lb_frac."""
+    the interval's lower end, lambda_max / lb_frac. gamma=2 flags the same
+    hierarchy for W-cycles (see MGHierarchy.gamma)."""
     pdim = op.pdim
     dtype, device = op.k_lam.dtype, op.k_lam.device
     mask = np.zeros(op.ndof, dtype=bool)
@@ -150,7 +157,7 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
     return MGHierarchy(levels=tuple(levels), coarse_inv=coarse_inv,
                        nu_pre=nu_pre, nu_post=nu_post, omega=omega,
                        coarse_smooth=coarse_smooth, smoother=smoother,
-                       degree=degree)
+                       degree=degree, gamma=gamma)
 
 
 def _gshape(level: MGLevel):
@@ -240,8 +247,8 @@ def restrict_g(rfg, pdim):
 
 
 def v_cycle(h: MGHierarchy, r):
-    """One V(nu_pre, nu_post) cycle on a flat (ndof,) residual; linear and
-    symmetric, so a valid CG preconditioner."""
+    """One V(nu_pre, nu_post) cycle (a W-cycle with h.gamma = 2) on a flat
+    (ndof,) residual; linear and symmetric, so a valid CG preconditioner."""
     return _v_g(h, 0, r.reshape(_gshape(h.levels[0]))).reshape(-1)
 
 
@@ -258,7 +265,13 @@ def _v_g(h: MGHierarchy, idx: int, rg):
     res = (rg - _masked_matvec_g(level, x)) * keep
     coarse = h.levels[idx + 1]
     keep_c = 1.0 - coarse.maskf.reshape(_gshape(coarse))
-    xc = _v_g(h, idx + 1, restrict_g(res, pdim) * keep_c) * keep_c
+    rc = restrict_g(res, pdim) * keep_c
+    xc = _v_g(h, idx + 1, rc) * keep_c
+    if h.gamma >= 2 and idx + 1 < len(h.levels) - 1:
+        # W-cycle: one residual-corrected second visit. Skipped when the
+        # child is the coarsest level: its dense inverse is exact.
+        rc2 = (rc - _masked_matvec_g(coarse, xc)) * keep_c
+        xc = xc + _v_g(h, idx + 1, rc2) * keep_c
     x = x + prolong_g(xc, pdim)
     return _smooth(h, level, x, rg, h.nu_post)
 

@@ -231,13 +231,21 @@ class MatfreeOperators:
 
 
 def matfree_operators(system: System, config: Config,
-                      log: Optional[Callable[[str], None]] = None
-                      ) -> MatfreeOperators:
+                      log: Optional[Callable[[str], None]] = None,
+                      sharded_op=None) -> MatfreeOperators:
     """Build the run's MatfreeOperators (see the class); the preconditioner
     kind follows config.resolve_precond: Jacobi below `amg_threshold` DOFs,
-    a hierarchy at or above it."""
+    a hierarchy at or above it. With `sharded_op` (a
+    parallel.ops.ShardedOperator) every elastic product K_el v, in the
+    residual, the Jacobian and the hierarchy's fine level, runs
+    element-sharded over its device mesh; the cohesive interface block is
+    O(surface) and stays on shard 0, with the hierarchy's coarse levels
+    (fem_tpu `newton.py:610-635,956-962`)."""
     n = system.ndof
     if config.resolve_precond(n) != "amg":
+        if sharded_op is not None:
+            return MatfreeOperators(el_mv=sharded_op.matvec,
+                                    el_diag=sharded_op.diag())
         fop = operator.build(system)
         return MatfreeOperators(el_mv=lambda v: operator.matvec(fop, v),
                                 el_diag=operator.diag(fop))
@@ -252,10 +260,12 @@ def matfree_operators(system: System, config: Config,
         (ke0.reshape(-1), (np.repeat(ed, nde, axis=1).reshape(-1),
                            np.tile(ed, (1, nde)).reshape(-1))),
         shape=A_el.shape).tocsr()
-    mg = hierarchy.build(system, A_el, A_hier=A)
+    mg = hierarchy.build(system, A_el, A_hier=A, fine=(
+        None if sharded_op is None else sharded_op.matvec))
     if log is not None:
-        log(f"Newton-Krylov set-up: "
-            f"{'block stencil' if mg.dims else 'fused'} operator, "
+        fine = ("element-sharded fused" if sharded_op is not None
+                else "block stencil" if mg.dims else "fused")
+        log(f"Newton-Krylov set-up: {fine} operator, "
             f"{'lattice GMG' if mg.kind == 'gmg' else 'SA-AMG'} on the "
             f"zero-opening tangent, level sizes {mg.sizes}, "
             f"{time.perf_counter() - t0:.2f} s")

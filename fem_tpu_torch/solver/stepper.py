@@ -11,9 +11,15 @@ aggregate_stress += nodal stress of the increment.
 
 The solver path is chosen by one table, PATHS: the first row whose predicate
 holds for the problem's features names the path. The row of a path that is
-not ported yet (`sharded`) raises NotImplementedError naming its ROADMAP
-item. Every setup returns one step(F, du_prev, aggregate_u, t_end) ->
-Increment.
+not ported yet (the DOF-sharded tiers of a multi-device run) raises
+NotImplementedError naming its ROADMAP item. Every setup returns one
+step(F, du_prev, aggregate_u, t_end) -> Increment.
+
+Config.n_devices > 1 (the reference's `mpiexec -n N`, fem_tpu
+`stepper.py:294-314,869-1011`) shards the elastic operator by elements over a
+device mesh (parallel/ops.ShardedOperator) on the unstructured rows and under
+the matrix-free Newton; direct solves, formulation "total" and explicit runs
+ignore it, as in fem_tpu.
 
 Viscoelastic creep (Config.viscoelastic) is not a path: on every linear row
 it adds System.creep_force of the per-ip creep state to the step's RHS, and
@@ -37,8 +43,10 @@ import torch
 from fem_tpu_torch.config import Config
 from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.models.system import PENALTY, System
-from fem_tpu_torch.ops import structured
+from fem_tpu_torch.ops import blockstencil, structured
 from fem_tpu_torch.ops.stiffness import lame
+from fem_tpu_torch.parallel import mesh as mesh_mod
+from fem_tpu_torch.parallel.ops import ShardedOperator
 from fem_tpu_torch.solver import amg, cg, direct, hierarchy, multigrid, newton
 from fem_tpu_torch.utils import checkpoint
 from fem_tpu_torch.utils.timing import Timers, device_trace
@@ -54,14 +62,22 @@ class Features:
     solver: str  # "direct" | "cg"
     structured: bool
     precond: str  # "jacobi" | "amg"
+    # whether the assembled connectivity is a lex lattice; it costs an
+    # assembly, so it is a call, made only by the row that asks
+    lattice: Callable[[], bool] = lambda: False
 
 
-# (path name, predicate on Features, ROADMAP item when not ported yet)
+# (path name, predicate on Features, ROADMAP item when not ported yet).
+# A cohesive deck shards its elastic operator inside its own row.
 PATHS = (
     ("explicit", lambda f: f.explicit, None),
     ("cohesive_newton", lambda f: f.cohesive, None),
-    ("sharded", lambda f: f.sharded, "A.9"),
     ("direct", lambda f: f.solver == "direct", None),
+    ("sharded_slab_stencil", lambda f: f.sharded and f.structured, "A.9"),
+    ("sharded_halo_block_stencil",
+     lambda f: f.sharded and f.precond == "amg" and f.lattice(), "A.9"),
+    ("sharded_amg_cg", lambda f: f.sharded and f.precond == "amg", None),
+    ("sharded_jacobi_cg", lambda f: f.sharded, None),
     ("structured_mg_cg", lambda f: f.structured, None),
     ("unstructured_amg_or_lattice_gmg_cg", lambda f: f.precond == "amg", None),
     ("unstructured_jacobi_cg", lambda f: True, None),
@@ -141,9 +157,19 @@ def _setup_direct(system: System, config: Config, solver: str, spec, log):
 def _setup_structured(system: System, config: Config, solver: str, spec,
                       log):
     """Stencil operator + Chebyshev-smoothed geometric multigrid + PCG in the
-    config dtype at every size (fem_tpu's small-deck branch,
-    stepper.py:408-467; the H100 has native FP64, so there is no f32 inner
-    solve under f64 refinement)."""
+    config dtype at every size, warm-started from the last increment (the
+    reference never zeroes Vec_U; fem_tpu's stepper.py:506-509,545-553).
+
+    fem_tpu solves decks above its `structured_big_threshold` with a float32
+    inner MG-CG under float64 refinement, because a TPU emulates float64.
+    Measured on the 80^3 box (1,594,323 DOFs) on an NVIDIA H100 80GB HBM3 at
+    700.00 W by chip_smoke.py's phase 21, both sides to a true relative
+    residual <= 1e-9, medians of 7 solves: this float64 solve 75.43 ms
+    (70.87-77.72; 12 iterations), solver/mixed.ir_solve 137.89 ms
+    (123.29-162.97; 20 inner iterations in 3 cycles) at its inner tolerance
+    of 1e-4 and 107.85 ms (101.71-116.58; 16 in 3) at 1e-3. The solve is
+    bound by kernel launches, whose number follows the iterations and not
+    the dtype, so the split does not pay here and no row takes it."""
     log("    Structured grid detected: stencil + multigrid path")
     dtype, dev = system.dtype, system.device
     lam, mu = lame(torch.tensor(spec["E"], dtype=dtype),
@@ -161,7 +187,9 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     def step(F, du_prev, aggregate_u, t_end):
         b = cg.constrained_rhs(lambda v: structured.matvec(op, v), F,
                                bc_mask, ubc)
-        res = cg.pcg(masked, b, precond=multigrid.preconditioner(hier),
+        # warm start (the reference never zeroes Vec_U)
+        res = cg.pcg(masked, b, x0=torch.where(bc_mask, ubc, du_prev),
+                     precond=multigrid.preconditioner(hier),
                      rtol=config.rtol or 1e-9, atol=config.atol,
                      maxiter=config.maxiter or 400)
         return Increment(res.x * (1.0 - mf) + ubc * mf, res.iters)
@@ -170,7 +198,7 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
 
 
 def _setup_unstructured(system: System, config: Config, solver: str, spec,
-                        log):
+                        log, A_csr=None, fine=None):
     """Unstructured meshes at scale, the any-mesh half of MUMPS' role
     (main.F90:354-390; fem_tpu's stepper.py:1012-1237 in float64 at every
     size): the assembled CSR on the host picks the fine operator (a block
@@ -179,21 +207,24 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     lattices above `gmg_min` DOFs, else SA-AMG with a dense coarse inverse
     up to 20,000 DOFs) of a masked PCG, warm-started from the last
     increment. A GMG solve that ends non-finite or unconverged demotes the
-    run to SA-AMG and solves again."""
+    run to SA-AMG and solves again. `fine` (the sharded row's operator)
+    takes the fine operator's place, `A_csr` the assembly's."""
     log("    AMG preconditioner (smoothed aggregation)")
     dtype, dev = system.dtype, system.device
     n = system.ndof
-    t0 = time.perf_counter()
-    A_csr = amg.assemble_csr(system)
-    t_asm = time.perf_counter() - t0
+    t_asm = "by the path choice"
+    if A_csr is None:
+        t0 = time.perf_counter()
+        A_csr = amg.assemble_csr(system)
+        t_asm = f"{time.perf_counter() - t0:.2f} s"
     fh = hierarchy.build(system, A_csr, gmg_min=config.gmg_min,
-                         coarse_max=20000)
+                         coarse_max=20000, fine=fine)
     del A_csr
-    if fh.dims is not None:
+    if fh.dims is not None and fine is None:
         log("    Lattice topology: block-stencil fine operator")
     if fh.kind == "gmg":
         log("    Geometric lattice-MG preconditioner")
-    log(f"    Unstructured set-up: assemble_csr {t_asm:.2f} s, operator "
+    log(f"    Unstructured set-up: assemble_csr {t_asm}, operator "
         f"{fh.t_op:.2f} s, hierarchy {fh.t_hier:.2f} s, level sizes "
         f"{fh.sizes}")
     fine = fh.fine
@@ -244,13 +275,60 @@ def _setup_jacobi(system: System, config: Config, solver: str, spec, log):
     return step
 
 
+def _sharded_operator(system: System, config: Config, log) -> ShardedOperator:
+    """The elastic operator sharded by elements over config.n_devices (the
+    reference's `mpiexec -n <cores>`, main.F90:32)."""
+    mesh = mesh_mod.make_mesh(config.n_devices, device=system.device)
+    log(f"    Sharding over {config.n_devices} devices ({mesh.describe()})")
+    return ShardedOperator(system, mesh)
+
+
+def _setup_sharded_jacobi(system: System, config: Config, solver: str, spec,
+                          log):
+    """_setup_jacobi on the element-sharded fused operator (fem_tpu's
+    stepper.py:999-1011): the CG vector algebra stays replicated."""
+    sop = _sharded_operator(system, config, log)
+    log("    Fused operator sharded over the device mesh")
+    d = sop.diag()
+    bc_vals = system.bc_step_vals()
+
+    def step(F, du_prev, aggregate_u, t_end):
+        res = cg.solve_eliminated(sop.matvec, F, d, system.bc_dofs, bc_vals,
+                                  x0=du_prev, rtol=config.rtol,
+                                  atol=config.atol, maxiter=config.maxiter)
+        return Increment(res.x, res.iters)
+
+    return step
+
+
+def _setup_sharded_amg(system: System, config: Config, solver: str, A_csr,
+                       log):
+    """_setup_unstructured's SA-AMG solve with the element-sharded operator
+    as its fine operator (fem_tpu's stepper.py:869-998, in float64
+    throughout): the CG matvec and the V-cycle's fine-level smoother and
+    residual run sharded, one all-reduce each; the coarse levels (K3
+    transfers, dense coarse inverse) are replicated on shard 0. `A_csr` is
+    the matrix the path choice assembled for its lattice check. fem_tpu
+    prefers its DOF-sharded halo-gather tier here (stepper.py:731-868) and
+    falls back to this one; until that tier is ported (ROADMAP A.9) every
+    general AMG deck takes this one: same answer, more communication."""
+    sop = _sharded_operator(system, config, log)
+    log("    Fused operator sharded over the device mesh (element-sharded "
+        "tier; the halo-gather tier is not ported yet)")
+    log("    AMG preconditioner over the sharded operator")
+    return _setup_unstructured(system, config, solver, None, log,
+                               A_csr=A_csr, fine=sop.matvec)
+
+
 def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
     """The cohesive Newton path (fem_tpu's stepper.py:1264-1288), one Newton
     solve per step, logged as the reference's "SNES Iteration Count".
     formulation "total" takes the dense true-equilibrium Newton, the direct
     solver the dense incremental one (SNES with the MUMPS stand-in), and
     otherwise the matrix-free Newton-Krylov, whose operators and hierarchy
-    are built here, once for the run."""
+    are built here, once for the run; with Config.n_devices > 1 its elastic
+    products run on the element-sharded operator (fem_tpu's
+    stepper.py:303-314; the dense forms ignore the mesh)."""
     sublog = lambda m: log("    " + m)  # noqa: E731
     if config.formulation == "total":
         def newton_step(F, du, agg, t_end):
@@ -262,7 +340,12 @@ def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
             return newton.solve_step(system, config, agg, du, F,
                                      bc_mode=bc_mode)
     else:
-        ops = newton.matfree_operators(system, config, log=sublog)
+        sop = None
+        if config.n_devices and config.n_devices > 1:
+            sop = _sharded_operator(system, config, log)
+            log("    Nonlinear path: fused operator sharded over the mesh")
+        ops = newton.matfree_operators(system, config, log=sublog,
+                                       sharded_op=sop)
 
         def newton_step(F, du, agg, t_end):
             return newton.solve_step_matfree(system, config, agg, du, F,
@@ -279,6 +362,8 @@ def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
 _SETUP = {
     "cohesive_newton": _setup_cohesive,
     "direct": _setup_direct,
+    "sharded_amg_cg": _setup_sharded_amg,
+    "sharded_jacobi_cg": _setup_sharded_jacobi,
     "structured_mg_cg": _setup_structured,
     "unstructured_amg_or_lattice_gmg_cg": _setup_unstructured,
     "unstructured_jacobi_cg": _setup_jacobi,
@@ -302,17 +387,9 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
                 else None)
     n = problem.ndof
     solver = config.resolve_solver(n)
+    explicit = problem.stype == "explicit"
     spec = structured.detect(problem) if solver == "cg" else None
-    path = choose_path(Features(
-        explicit=problem.stype == "explicit",
-        cohesive=problem.has_cohesive,
-        sharded=bool(config.n_devices and config.n_devices > 1),
-        solver=solver,
-        structured=spec is not None,
-        precond=config.resolve_precond(n),
-    ))
-    log(f"    Solver path: {path}")
-    if config.viscoelastic and path == "cohesive_newton":
+    if config.viscoelastic and problem.has_cohesive and not explicit:
         raise NotImplementedError(
             "viscoelastic + cohesive in one run is not supported yet")
     cpdim = 3 if problem.pdim == 2 else 6
@@ -336,13 +413,33 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
             first_step = step0 + 1
             log(f"Resumed from {ck_path} (next interval {first_step})")
 
-    if path == "explicit":
+    csr = {}  # the matrix assembled for the lattice check, for the set-up
+
+    def lattice():
+        csr["A"] = amg.assemble_csr(system)
+        return blockstencil.detect(csr["A"], system.pdim,
+                                   system.nnds) is not None
+
+    features = Features(
+        explicit=explicit,
+        cohesive=problem.has_cohesive,
+        sharded=bool(config.n_devices and config.n_devices > 1),
+        solver=solver,
+        structured=spec is not None,
+        precond=config.resolve_precond(n),
+        lattice=lattice,
+    )
+    if explicit:
+        path = choose_path(features)
+        log(f"    Solver path: {path}")
         for k in range(first_step, nsteps + 1):
             log(f"Interval: {k}")
     else:
         with tm.phase("setup"):
             system = System(problem, dtype, device=device,
                             plane_stress=config.plane_stress)
+            path = choose_path(features)
+            log(f"    Solver path: {path}")
             creep_state = (system.creep_state_init() if config.viscoelastic
                            else {})
             if creep_state and resumed_creep is not None:
@@ -354,7 +451,9 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
                         "run; it predates creep checkpointing — rerun with "
                         "--no-resume or a fresh --checkpoint-dir")
                 creep_state = resumed_creep
-            step = _SETUP[path](system, config, solver, spec, log)
+            # the sharded AMG row gets the lattice check's matrix
+            step = _SETUP[path](system, config, solver, csr.pop("A", spec),
+                                log)
         solve_phase = "newton" if path == "cohesive_newton" else "solve"
         for k in range(first_step, nsteps + 1):
             log(f"Interval: {k}")

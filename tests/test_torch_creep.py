@@ -180,7 +180,13 @@ def test_viscoelastic_run_matches_fem_tpu(row, solver, jitter):
     assert r.path == row and r.nsteps == 3
     close(r.aggregate_u, jr.aggregate_u, rtol=1e-9)
     close(r.aggregate_stress, jr.aggregate_stress, rtol=1e-9)
-    if solver == "cg":
+    if row == "structured_mg_cg":
+        # fem_tpu's small-deck branch starts every step cold; the port
+        # warm-starts, as fem_tpu's big branches do (test_torch_warmstart)
+        assert r.krylov_iters[0] == jr.krylov_iters[0]
+        assert all(a < b for a, b in zip(r.krylov_iters[1:],
+                                         jr.krylov_iters[1:]))
+    elif solver == "cg":
         assert r.krylov_iters == jr.krylov_iters
     # creep moved the run away from the elastic one
     el = stepper.run(Problem.from_reference(jp), Config(device="cpu",

@@ -169,12 +169,9 @@ def test_import_leaves_jax_out():
     (dict(profile_dir="trace"), "A.8"),
 ])
 def test_config_unported_options_raise(kw, item):
-    """The A.8 options are ported: accepted and kept. n_devices > 1 still
-    raises, naming A.9."""
-    if item == "A.9":
-        with pytest.raises(NotImplementedError, match=item):
-            Config(device="cpu", **kw)
-        return
+    """The A.8 options and n_devices > 1 (A.9's element-sharded tier) are
+    ported: accepted and kept. The A.9 tiers still to come raise from the
+    stepper's path table (tests/test_torch_parallel.py)."""
     c = Config(device="cpu", **kw)
     for key, value in kw.items():
         assert getattr(c, key) == value

@@ -119,17 +119,20 @@ def test_load_backend_dispatch(monkeypatch):
 
 
 def test_without_library_every_native_call_raises(monkeypatch):
-    """No pure-Python stand-in: without the library every entry point of
-    the binding raises fem_tpu's RuntimeError."""
+    """Without the library the parser and morton_order raise fem_tpu's
+    RuntimeError; rcb_partition, which `--shards` calls, takes its numpy
+    form as fem_tpu's does (tests/test_torch_partition.py holds it to the
+    library)."""
     monkeypatch.setattr(native, "_load", lambda: None)
     assert not native.available()
     c = np.random.default_rng(0).random((10, 3))
     for call in (lambda: native.parse_flat(DECKS[0]),
                  lambda: native.parse(DECKS[0]),
-                 lambda: native.morton_order(c),
-                 lambda: native.rcb_partition(c, 2)):
+                 lambda: native.morton_order(c)):
         with pytest.raises(RuntimeError, match="native mesh engine not built"):
             call()
+    part = native.rcb_partition(c, 2)
+    assert part.dtype == np.int32 and np.bincount(part).tolist() == [5, 5]
 
 
 @pytest.mark.parametrize("deck", [DECKS[0], DECKS[1], "strip"],

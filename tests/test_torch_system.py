@@ -135,11 +135,24 @@ def test_path_table_rows():
         **{**f, "precond": "amg"})) == "unstructured_amg_or_lattice_gmg_cg"
     assert stepper.choose_path(stepper.Features(
         **{**f, "cohesive": True})) == "cohesive_newton"
-    # creep is not a row (ROADMAP A.8 adds it to every linear row's RHS);
-    # sharded runs still raise
+    # creep is not a row (ROADMAP A.8 adds it to every linear row's RHS)
     assert "creep" not in [name for name, _, _ in stepper.PATHS]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        stepper.choose_path(stepper.Features(**{**f, "sharded": True}))
+    # sharded runs: the element-sharded rows run; the DOF-sharded tiers of
+    # a structured box and of a lex-lattice AMG deck still raise; direct
+    # solves and cohesive decks keep their rows
+    s = {**f, "sharded": True}
+    assert stepper.choose_path(stepper.Features(**s)) == "sharded_jacobi_cg"
+    assert stepper.choose_path(stepper.Features(
+        **{**s, "precond": "amg"})) == "sharded_amg_cg"
+    assert stepper.choose_path(stepper.Features(
+        **{**s, "solver": "direct"})) == "direct"
+    assert stepper.choose_path(stepper.Features(
+        **{**s, "cohesive": True})) == "cohesive_newton"
+    with pytest.raises(NotImplementedError, match="slab_stencil.*A.9"):
+        stepper.choose_path(stepper.Features(**{**s, "structured": True}))
+    with pytest.raises(NotImplementedError, match="halo_block_stencil.*A.9"):
+        stepper.choose_path(stepper.Features(
+            **{**s, "precond": "amg", "lattice": lambda: True}))
 
 
 def test_unported_rows_raise_from_run():

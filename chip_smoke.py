@@ -41,11 +41,12 @@ Phases, each of which exits non-zero when it fails:
      in phase 9, on the real prolongation, restriction and CSR mid-level
      tables of the 526,848-DOF SA-AMG hierarchy and on the box's assembled
      matrix (measured only: the path's fine operator is the fused one);
-  9. the permuted, jittered 55^3 hex8 box (526,848 DOFs, float64): host
-     set-up phases (assemble_csr, amg.build with its level sizes, fused
-     operator), then stepper.run through unstructured_amg_or_lattice_gmg_cg
-     with SA-AMG, its launch counts, and the true relative residual
-     recomputed with assemble_csr's matrix as a torch sparse CSR product;
+  9. the permuted, jittered 55^3 hex8 box (526,848 DOFs, float64):
+     stepper.run through unstructured_amg_or_lattice_gmg_cg with SA-AMG
+     (its log gives the host set-up's phases and level sizes), its launch
+     counts, K3 on the tables of the hierarchy that the run built, and the
+     true relative residual recomputed with assemble_csr's matrix as a
+     torch sparse CSR product;
  10. the same box in lex order through the block stencil and lattice GMG,
      with the same residual check;
  11. the cohesive decks on the card, each against the same run on the CPU:
@@ -114,18 +115,48 @@ Phases, each of which exits non-zero when it fails:
      4 shards on this one card (their wall says nothing about scaling):
      (a) ShardedOperator.matvec and diag against System.matvec / diag on the
      permuted 55^3 box (1e-12), one all-reduce of ndof * 8 bytes per K.u by
-     commcount; (b) stepper.run(n_devices=4) on that box through
-     sharded_amg_cg: phase 9's iteration count (+-1, printed), u to 1e-9,
-     true residual <= 1e-8, K3 launched; (c) the node-permuted cohesive
-     strip with n_devices=4: phase 13's Newton counts, u to 1e-8.
+     commcount; (b) stepper.run(n_devices=4) through sharded_amg_cg on a
+     deck where the halo-gather layout refuses (a node-permuted jittered
+     plate of 2 x 100 x 100 cubic cells, 91,809 DOFs: three node planes
+     along x, so an element reaches farther than a slab of the coordinate
+     order), held against its own single-device run: iterations +-1, u to
+     1e-9, true residual <= 1e-8, K3 launched; (c) the node-permuted
+     cohesive strip with n_devices=4: phase 13's Newton counts, u to 1e-8;
+ 23. the slab-sharded stencil at 80^3, 4 shards: (a) matvec_sharded and
+     halo_matvec against structured.matvec (1e-12) with the scalar material
+     and with a random per-cell field; one all-reduce of ndof * 8 bytes,
+     and exactly two exchanges of one node plane (81 * 81 * 3 * 8 bytes);
+     K2 against both plain forms, as in phase 4, on every slab grid of the
+     4- and the 3-shard run ((21, 81, 81); (28, 81, 81), (27, 81, 81)), and
+     timed on one (21, 81, 81) slab beside cuSPARSE on the assembled matrix
+     of the slab's own box; (b) stepper.run(n_devices=4) through
+     sharded_slab_stencil against phase 7's run: 12 +- 1 iterations, u to
+     1e-9, true residual <= 1e-8, K2's launches by grid; (c) the same with
+     3 shards (80 cells: unequal slabs), and whether K2 ran on them;
+ 24. the halo block stencil on phase 10's lex 55^3 box: K.u against
+     blockstencil.matvec (1e-12) with 4 and with 3 shards (56 node planes:
+     unequal slabs), exactly two exchanges of 56 * 56 * 3 * 8 bytes;
+     stepper.run(n_devices=4) through sharded_halo_block_stencil with
+     lattice GMG: phase 10's iterations +-1, u to 1e-9, residual <= 1e-8,
+     and the bytes that crossed shards per CG iteration;
+ 25. the halo-gather tier on phase 9's permuted 55^3 box: S and B of
+     halo_gather.build, K.u against System.matvec (1e-12), exactly four
+     exchanges of B * 3 * 8 bytes; stepper.run(n_devices=4) through
+     sharded_amg_cg with SA-AMG on the slab-permuted matrix: total
+     iterations <= 2 x phase 9's + 4, u to 1e-9, residual <= 1e-8, K1 and K3
+     launched;
+ 26. one [comm] line per sharded tier: the collectives of one K.u.
 Each kernel's "launches" in the summary is the count of its main path's
 run ("launches_path": the 80^3 elastic run for K1 and K2, the 55^3 SA-AMG
 run for K3); "launches_by_path" gives every counted run's own count.
+A "[ t s] phase" line at each phase's start gives the seconds since the
+script began.
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script exits non-zero before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -142,6 +173,33 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase):
+    """One line with the seconds since the script began: where a run's time
+    goes, phase by phase."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {phase}", flush=True)
+
+
+@contextlib.contextmanager
+def kept(module, name):
+    """While open, every call of module.name also appends its result to the
+    list this yields: what a run built (a hierarchy, an operator) is checked
+    afterwards without building it a second time."""
+    fn, results = getattr(module, name), []
+
+    def keeping(*args, **kw):
+        results.append(fn(*args, **kw))
+        return results[-1]
+
+    setattr(module, name, keeping)
+    try:
+        yield results
+    finally:
+        setattr(module, name, fn)
 
 
 def time_back_to_back_ms(torch, fn, reps):
@@ -912,15 +970,42 @@ def phase21_refinement(torch, dev, n, reps=7):
     return launches["float64"], launches[best]
 
 
-def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
-                    true_rel_residual):
+def traced_run(torch, stepper, problem, config):
+    """stepper.run with its log lines printed, its wall between
+    synchronizations, and its collectives: (result, wall, log lines, all
+    collectives, those issued once the load steps had begun)."""
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+
+    rec, msgs, marks = [], [], []
+
+    def log(m):
+        msgs.append(m)
+        if "Interval" in m:
+            marks.append(len(rec))
+
+    mesh_mod.recorders.append(rec)
+    try:
+        res, wall = sync_wall(torch, lambda: stepper.run(problem, config,
+                                                         log=log))
+    finally:
+        mesh_mod.recorders.remove(rec)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    return res, wall, msgs, rec, rec[marks[0]:]
+
+
+def phase22_sharded(torch, dev, perm55, pstrip, res13, true_rel_residual):
     """Phase 22: the element-sharded rows, 4 shards on this one card.
-    Returns the launches of the sharded SA-AMG run and the sharded strip."""
+    Returns the launches of the sharded SA-AMG run and the sharded strip,
+    the collectives of one element-sharded K.u, and the permuted 55^3 box's
+    System."""
     import os
 
     import numpy as np
 
     from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
     from fem_tpu_torch.models.system import System
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import operator
@@ -936,8 +1021,9 @@ def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
     print(f"sharded: {mesh_mod.VIRTUAL_ENV}=4, {label}", flush=True)
     check(mesh.size == 4, f"the mesh has {mesh.size} shards")
 
-    # (a) the operator
-    system = System(perm55, torch.float64, device=dev)
+    # (a) the operator; phase 25 shards the same System (built here, not
+    # kept from phase 9, so that phase 14's peak memory is the creep run's)
+    sys_perm = system = System(perm55, torch.float64, device=dev)
     sop = ShardedOperator(system, mesh)
     u = torch.as_tensor(np.random.default_rng(0).standard_normal(
         system.ndof), device=dev)
@@ -946,8 +1032,7 @@ def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
     e_mv = float((got - ref).abs().max() / ref.abs().max())
     d_ref = system.diag()
     e_dg = float((sop.diag() - d_ref).abs().max() / d_ref.abs().max())
-    cols = commcount.collectives(sop.matvec, u)
-    print("  " + commcount.summary("element-sharded K.u", cols), flush=True)
+    cols = comm_kmv = commcount.collectives(sop.matvec, u)
     ar = [c for c in cols if c[0] == "all_reduce_sum"]
     fop = operator.build(system)
     t_shd = time_ms(torch, lambda: sop.matvec(u), 20)
@@ -964,37 +1049,42 @@ def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
           f"sharded K.u collectives: {cols}")
     del sop, fop, ref, got, d_ref
 
-    # (b) the sharded SA-AMG row
+    # (b) the sharded SA-AMG row, on a deck that the halo-gather layout
+    # refuses: 3 node planes along x, 4 slabs of the coordinate order
+    plate = meshgen.permute_nodes(meshgen.hex_box_problem(
+        2, 100, 100, lx=2.0 / 100, ly=1.0, lz=1.0, E=200e9, nu=0.3,
+        tip_load=-1e6, jitter=0.25, seed=0), seed=0)
+    ref = stepper.run(plate, Config(device="cuda"))
     ck.reset_launches()
-    msgs, out = [], {}
-    cols = commcount.collectives(lambda: out.update(run=sync_wall(
-        torch, lambda: stepper.run(perm55, Config(device="cuda", n_devices=4),
-                                   log=msgs.append))))
-    res, wall = out["run"]
+    res, wall, msgs, cols, _ = traced_run(
+        torch, stepper, plate, Config(device="cuda", n_devices=4))
     launches_amg = dict(ck.launches)
-    for m in msgs:
-        if "Interval" not in m:
-            print(f"  stepper: {m.strip()}")
     ar = [c[2] for c in cols if c[0] == "all_reduce_sum"]
     n_ar, b_ar = len(ar), sum(ar)
-    rel_u = float(np.abs(res.aggregate_u - res9.aggregate_u).max()
-                  / np.abs(res9.aggregate_u).max())
+    rel_u = rel_max(res.aggregate_u, ref.aggregate_u)
+    system = System(plate, torch.float64, device=dev)
     true_rel = true_rel_residual(
         system, amg.assemble_csr(system),
         torch.as_tensor(res.aggregate_u, device=dev))
-    print(f"sharded SA-AMG, permuted 55^3 box, {label}: path {res.path}, "
-          f"iterations {res.krylov_iters} (single device "
-          f"{res9.krylov_iters}), max |du| / max |u| vs the single-device "
-          f"run {rel_u:.3e} (tol 1e-9), true rel residual {true_rel:.3e}, "
-          f"{n_ar} all-reduces of {b_ar // n_ar} bytes, stepper.run wall "
-          f"{wall:.2f} s, launches {launches_amg}", flush=True)
-    check(res.path == "sharded_amg_cg", f"sharded 55^3 took {res.path}")
-    check(len(res.krylov_iters) == len(res9.krylov_iters)
+    print(f"sharded SA-AMG, permuted 2 x 100 x 100 plate ({plate.ndof} DOFs)"
+          f", {label}: path {res.path}, iterations {res.krylov_iters} "
+          f"(single device {ref.krylov_iters}), max |du| / max |u| vs the "
+          f"single-device run {rel_u:.3e} (tol 1e-9), true rel residual "
+          f"{true_rel:.3e}, {n_ar} all-reduces of {b_ar // n_ar} bytes, "
+          f"stepper.run wall {wall:.2f} s, launches {launches_amg}",
+          flush=True)
+    check(res.path == "sharded_amg_cg"
+          and ref.path == "unstructured_amg_or_lattice_gmg_cg",
+          f"the plate took {res.path} and {ref.path}")
+    check(any("halo-gather layout unavailable" in m for m in msgs)
+          and any("element-sharded tier" in m for m in msgs),
+          "the plate did not fall back to the element-sharded tier")
+    check(len(res.krylov_iters) == len(ref.krylov_iters)
           and all(abs(a - b) <= 1 for a, b in zip(res.krylov_iters,
-                                                  res9.krylov_iters)),
-          f"sharded iterations {res.krylov_iters} vs {res9.krylov_iters}")
-    check(rel_u <= 1e-9, f"sharded 55^3 u differs by {rel_u}")
-    check(true_rel <= 1e-8, f"sharded 55^3 true rel residual {true_rel}")
+                                                  ref.krylov_iters)),
+          f"sharded iterations {res.krylov_iters} vs {ref.krylov_iters}")
+    check(rel_u <= 1e-9, f"sharded plate u differs by {rel_u}")
+    check(true_rel <= 1e-8, f"sharded plate true rel residual {true_rel}")
     check(launches_amg["csr_matvec"] > 0 and launches_amg["hex8_stiffness"]
           > 0, "the sharded SA-AMG run launched no K3 or no K1")
     check(b_ar == n_ar * system.ndof * 8, "an all-reduce of another size")
@@ -1002,12 +1092,9 @@ def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
 
     # (c) the sharded matrix-free Newton
     ck.reset_launches()
-    msgs = []
-    cols = commcount.collectives(lambda: out.update(run=sync_wall(
-        torch, lambda: stepper.run(
-            pstrip, Config(device="cuda", solver="cg", n_devices=4),
-            log=msgs.append))))
-    res, wall = out["run"]
+    res, wall, msgs, cols, _ = traced_run(
+        torch, stepper, pstrip,
+        Config(device="cuda", solver="cg", n_devices=4))
     launches_coh = dict(ck.launches)
     rel_u = float(np.abs(res.aggregate_u - res13.aggregate_u).max()
                   / np.abs(res13.aggregate_u).max())
@@ -1032,7 +1119,311 @@ def phase22_sharded(torch, dev, perm55, res9, pstrip, res13,
           f"{res13.krylov_iters}")
     check(rel_u <= 1e-8, f"sharded strip u differs by {rel_u}")
     check(launches_coh["csr_matvec"] > 0, "the sharded Newton launched no K3")
-    return launches_amg, launches_coh
+    return launches_amg, launches_coh, comm_kmv, sys_perm
+
+
+def check_run(res, ref, path, rel_u, true_rel, label):
+    """A sharded run's path, u against the single-device run's (1e-9), true
+    relative residual (<= 1e-8) and finite stress."""
+    import numpy as np
+
+    check(res.path == path, f"{label} took {res.path}, not {path}")
+    check(rel_u <= 1e-9, f"{label}: u differs from the single-device run's "
+                         f"by {rel_u}")
+    check(true_rel <= 1e-8, f"{label}: true rel residual {true_rel}")
+    check(res.aggregate_stress.shape == ref.aggregate_stress.shape
+          and bool(np.isfinite(res.aggregate_stress).all()),
+          f"{label}: stress not finite or of the wrong shape")
+
+
+def phase23_slab(torch, dev, big, res7, k2_case, k2_measure):
+    """Phase 23: the slab-sharded stencil at 80^3. k2_case and k2_measure
+    are phase 4's checks of K2 on an operator's grid. Returns the launches of
+    the 4- and 3-shard runs, K2's measurements on one slab, and the
+    collectives of one K.u in each of the two forms."""
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.parallel import commcount
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.solver import amg, stepper
+
+    mesh = mesh_mod.make_mesh(4, device="cuda")
+    label = mesh.describe()
+    system, op, rel = structured_box(torch, dev, big)
+    n, nn = op.ndof, op.shape[0]  # DOFs; nodes a side (81)
+    plane = nn * nn * 3 * 8
+    rng = np.random.default_rng(0)
+    u = torch.as_tensor(rng.standard_normal(n), device=dev)
+    cells = tuple(c - 1 for c in op.shape)
+    field_op = structured.StencilOperator(
+        op.k_lam, op.k_mu,
+        op.lam * torch.as_tensor(rng.uniform(0.5, 1.5, cells), device=dev),
+        op.mu * torch.as_tensor(rng.uniform(0.5, 1.5, cells), device=dev),
+        op.shape)
+    # (a) the two sharded forms against the single-device K.u
+    for name, o in (("scalar material", op), ("per-cell field", field_op)):
+        sl = structured.shard_slabs(o, mesh)
+        ref = structured.matvec(o, u)
+        errs = {}
+        ck.reset_launches()
+        comm_psum = commcount.collectives(
+            lambda: errs.update(psum=rel_max(structured.matvec_sharded(sl, u),
+                                             ref)))
+        ub = mesh_mod.scatter(mesh, structured.to_blocks(sl, u))
+        comm_halo = commcount.collectives(
+            lambda: errs.update(halo=rel_max(structured.from_blocks(
+                sl, structured.halo_matvec(sl, ub)), ref)))
+        k2 = ck.launches["stencil_matvec"]
+        print(f"slab stencil {nn - 1}^3 ({n} DOFs), {name}, {label}: "
+              f"matvec_sharded rel diff {errs['psum']:.3e}, halo_matvec "
+              f"{errs['halo']:.3e} (tol 1e-12), K2 launches of the two "
+              f"applies {k2}", flush=True)
+        check(max(errs.values()) <= 1e-12, f"slab K.u ({name}): {errs}")
+        check(k2 == (8 if o is op else 0),
+              f"slab K.u ({name}) launched K2 {k2} times")
+        check(sorted(comm_psum) == [("all_reduce_sum", (n,), n * 8),
+                                    ("replicate", (n,), n * 8)],
+              f"matvec_sharded collectives: {comm_psum}")
+        check(comm_halo == [("neighbor_exchange", (nn, nn, 3), plane)] * 2,
+              f"halo_matvec collectives: {comm_halo}")
+        if o is op:
+            lop = sl.ops[0]
+    del field_op, sl, ub, ref
+    # K2 against both plain forms on every slab grid that the 4- and the
+    # 3-shard runs below give it, in float64 and float32 as in phase 4
+    slab_err = {}
+    for shards in (4, 3):
+        slabs = structured.shard_slabs(
+            op, mesh_mod.make_mesh(shards, device="cuda"))
+        for o in slabs.ops:
+            if o.shape not in slab_err:
+                slab_err[o.shape] = k2_case(o)
+    want = {(e - s + 1, nn, nn) for shards in (4, 3)
+            for s, e in mesh_mod.slab_bounds(nn - 1, shards)}
+    check(set(slab_err) == want and lop.shape in want,
+          f"K2 was held on slab grids {sorted(slab_err)}, not {sorted(want)}")
+    del slabs
+    # K2's times on one slab of the 4-shard run beside cuSPARSE on the
+    # assembled matrix of the slab's own box
+    nc = lop.shape[0] - 1
+    slab_box = meshgen.hex_box_problem(
+        nc, nn - 1, nn - 1, lx=nc / (nn - 1), ly=1.0, lz=1.0,
+        E=200e9, nu=0.3)
+    m_slab = dict(
+        k2_measure(lop, amg.assemble_csr(System(slab_box, torch.float64,
+                                                device=dev))),
+        max_abs_err=slab_err[lop.shape], shape=list(lop.shape))
+
+    # (b), (c) the stepper row with 4 shards and with 3
+    F = system.rhs(0.0)
+    launches = {}
+    for shards in (4, 3):
+        k2_by_grid, restore_k2 = tally_k2(ck, lambda t, u: t.shape)
+        ck.reset_launches()
+        try:
+            res, wall, msgs, cols, solve = traced_run(
+                torch, stepper, big, Config(device="cuda", n_devices=shards))
+        finally:
+            restore_k2()
+        launches[shards] = dict(ck.launches)
+        rel_u = rel_max(res.aggregate_u, res7.aggregate_u)
+        true_rel = rel(F, torch.as_tensor(res.aggregate_u, device=dev))
+        ar = [c[2] for c in solve if c[0] == "all_reduce_sum"]
+        on_slabs = {g: k for g, k in k2_by_grid.items()
+                    if g[0] < nn and g[1:] == (nn, nn)}
+        print(f"sharded slab stencil, {nn - 1}^3 box, {shards} shards on 1 "
+              f"card: "
+              f"path {res.path}, MG-CG iterations {res.krylov_iters} (single "
+              f"device {res7.krylov_iters}), max |du| / max |u| {rel_u:.3e} "
+              f"(tol 1e-9), true rel residual {true_rel:.3e}, {len(ar)} "
+              f"all-reduces of {n * 8} bytes in the solve, stepper.run wall "
+              f"{wall:.2f} s (no scaling statement), K2 launches "
+              f"{launches[shards]['stencil_matvec']}, by grid {k2_by_grid}: "
+              f"{sum(on_slabs.values())} on slab grids (the fine level ran "
+              f"on {'K2' if on_slabs else 'the cell form'})", flush=True)
+        check_run(res, res7, "sharded_slab_stencil", rel_u, true_rel,
+                  f"{nn - 1}^3 box, {shards} shards")
+        check(any("MG fine level sharded over the slab mesh" in m
+                  for m in msgs), "the MG fine level was not sharded")
+        check(all(abs(i - j) <= 1 for i, j in zip(res.krylov_iters,
+                                                  res7.krylov_iters)),
+              f"sharded MG-CG iterations {res.krylov_iters} against "
+              f"{res7.krylov_iters}")
+        check(set(ar) == {n * 8}, "an all-reduce of another size")
+        slab_grids = {(e - s + 1, nn, nn) for s, e in
+                      mesh_mod.slab_bounds(nn - 1, shards)}
+        check(set(on_slabs) >= slab_grids and len(ar) * shards
+              == sum(k for g, k in on_slabs.items() if g in slab_grids),
+              f"K2 did not run once per shard per fine K.u: {k2_by_grid}")
+    return launches[4], launches[3], m_slab, comm_psum, comm_halo
+
+
+def phase24_halo_block(torch, dev, lex, res10, A_lex, true_rel_residual):
+    """Phase 24: the halo block stencil on the lex 55^3 box. Returns the
+    launches of the sharded run and the collectives of one K.u."""
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import blockstencil as bs
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.parallel import commcount
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.solver import stepper
+
+    # the run first; its block stencil operator, kept, is the one that the
+    # sharded K.u is held against below
+    ck.reset_launches()
+    with kept(bs, "build") as built:
+        res, wall, msgs, cols, solve = traced_run(
+            torch, stepper, lex, Config(device="cuda", n_devices=4))
+    launches = dict(ck.launches)
+    # the first one built is the fine operator (lattice GMG builds its
+    # coarse levels' after it)
+    check(len(built) >= 1, "the run built no block stencil")
+    bop = built[0]
+    del built[:]
+    system = System(lex, torch.float64, device=dev)
+    dims = bop.dims
+    check(len(set(dims)) == 1 and system.nnds == bop.nnds,
+          f"the lex box's lattice is {dims}")
+    plane = dims[1] * dims[2] * 3 * 8
+    rel_u = rel_max(res.aggregate_u, res10.aggregate_u)
+    true_rel = true_rel_residual(system, A_lex, torch.as_tensor(
+        res.aggregate_u, device=dev))
+    its = sum(res.krylov_iters)
+    crossed = sum(c[2] for c in solve)
+    print(f"sharded halo block stencil, lex 55^3 box, 4 shards on 1 card: "
+          f"path {res.path}, GMG-CG iterations {res.krylov_iters} (single "
+          f"device {res10.krylov_iters}), max |du| / max |u| {rel_u:.3e} "
+          f"(tol 1e-9), true rel residual {true_rel:.3e}, stepper.run wall "
+          f"{wall:.2f} s (no scaling statement), launches {launches}",
+          flush=True)
+    print("  " + commcount.summary("the solve", solve)
+          + f": {crossed // its} bytes crossed shards per CG iteration "
+          f"({crossed} in {its}), against {system.ndof * 8} per K.u and as "
+          f"many per replicated input on the element-sharded tier",
+          flush=True)
+    check_run(res, res10, "sharded_halo_block_stencil", rel_u, true_rel,
+              "lex 55^3 box, 4 shards")
+    check(any("Geometric lattice-MG" in m for m in msgs)
+          and not any("demotion" in m for m in msgs),
+          "the sharded lex box did not solve with lattice GMG")
+    check(len(res.krylov_iters) == len(res10.krylov_iters) and all(
+        abs(a - b) <= 1 for a, b in zip(res.krylov_iters,
+                                        res10.krylov_iters)),
+          f"sharded GMG-CG iterations {res.krylov_iters} vs "
+          f"{res10.krylov_iters}")
+    check({c[2] for c in solve if c[0] == "neighbor_exchange"} == {plane}
+          and {c[2] for c in solve if c[0] == "all_reduce_sum"} == {8},
+          "the solve moved more than planes between neighbours or "
+          "all-reduced more than scalars")
+    check(launches["hex8_stiffness"] > 0, "the sharded GMG run launched no K1")
+    # one K.u with 4 and with 3 shards against the single-device form
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        system.ndof), device=dev)
+    ref = bs.matvec(bop, u)
+    for shards in (4, 3):
+        mesh = mesh_mod.make_mesh(shards, device="cuda")
+        hop = bs.shard_rows(bop, mesh)
+        lay = hop.layout()
+        us = lay.scatter(u)
+        out = {}
+        comm = commcount.collectives(lambda: out.update(
+            f=bs.halo_matvec_g(hop, us.parts)))
+        err = rel_max(lay.gather(mesh_mod.ShardedVector(mesh, out["f"])), ref)
+        print(f"halo block stencil, lex {dims[0] - 1}^3 box ({system.ndof} "
+              f"DOFs), "
+              f"{shards} shards on 1 card, slabs of "
+              f"{[len(p) for p in us.parts]} node planes: K.u rel diff vs "
+              f"blockstencil.matvec {err:.3e} (tol 1e-12); "
+              + commcount.summary("one K.u", comm), flush=True)
+        check(err <= 1e-12, f"halo block stencil K.u differs: {err}")
+        check(comm == [("neighbor_exchange", (1,) + dims[1:] + (3,),
+                        plane)] * 2,
+              f"halo block stencil collectives: {comm}")
+        if shards == 4:
+            comm_kmv = comm
+        del hop, us, out
+    del bop, ref
+    return launches, comm_kmv
+
+
+def phase25_halo_gather(torch, dev, perm55, system, res9, A_perm,
+                        true_rel_residual):
+    """Phase 25: the halo-gather tier on the permuted 55^3 box. Returns the
+    launches of the sharded run and the collectives of one K.u."""
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.parallel import commcount, halo_gather
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.solver import stepper
+
+    mesh = mesh_mod.make_mesh(4, device="cuda")
+    (hg, pos), t_build = sync_wall(torch, lambda: halo_gather.build(system,
+                                                                    mesh))
+    idx = torch.as_tensor(halo_gather.dof_order(pos, 3), device=dev)
+    lay = hg.layout()
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        system.ndof), device=dev)
+    us = lay.scatter(u[idx])
+    out = {}
+    comm = commcount.collectives(lambda: out.update(
+        f=halo_gather.matvec(hg, us.parts)))
+    got = torch.empty_like(u).index_copy_(0, idx, lay.gather(
+        mesh_mod.ShardedVector(mesh, out["f"])))
+    err = rel_max(got, system.matvec(u))
+    band = hg.B * 3 * 8
+    print(f"halo-gather, permuted 55^3 box ({system.ndof} DOFs), "
+          f"{mesh.describe()}: build {t_build:.2f} s, S = {hg.S}, B = {hg.B}"
+          f", elements per shard {[b.conn.shape[0] for b in hg.blocks]}; "
+          f"K.u rel diff vs System.matvec {err:.3e} (tol 1e-12); "
+          + commcount.summary("one K.u", comm), flush=True)
+    check(err <= 1e-12, f"halo-gather K.u differs: {err}")
+    check(comm == [("neighbor_exchange", (hg.B, 3), band)] * 4,
+          f"halo-gather collectives: {comm}")
+    check(hg.B < hg.S and 4 * band < system.ndof * 8,
+          f"the halo-gather layout is not banded: S {hg.S}, B {hg.B}")
+    del hg, us, out, got
+
+    ck.reset_launches()
+    res, wall, msgs, cols, solve = traced_run(
+        torch, stepper, perm55, Config(device="cuda", n_devices=4))
+    launches = dict(ck.launches)
+    rel_u = rel_max(res.aggregate_u, res9.aggregate_u)
+    true_rel = true_rel_residual(system, A_perm, torch.as_tensor(
+        res.aggregate_u, device=dev))
+    its, its9 = sum(res.krylov_iters), sum(res9.krylov_iters)
+    print(f"sharded halo-gather SA-AMG, permuted 55^3 box, 4 shards on 1 "
+          f"card: path {res.path}, iterations {res.krylov_iters} (single "
+          f"device, another aggregation order: {res9.krylov_iters}), max "
+          f"|du| / max |u| {rel_u:.3e} (tol 1e-9), true rel residual "
+          f"{true_rel:.3e}, stepper.run wall {wall:.2f} s (no scaling "
+          f"statement), launches {launches}", flush=True)
+    print("  " + commcount.summary("the solve", solve)
+          + f": {sum(c[2] for c in solve) // its} bytes crossed shards per "
+          f"CG iteration", flush=True)
+    check_run(res, res9, "sharded_amg_cg", rel_u, true_rel,
+              "permuted 55^3 box, 4 shards")
+    check(any("DOF-sharded halo-gather operator" in m for m in msgs)
+          and any("slab-permuted operator" in m for m in msgs),
+          "the permuted 55^3 box did not take the halo-gather tier")
+    check(0 < its <= 2 * its9 + 4,
+          f"halo-gather iterations {its} against {its9} single-device")
+    check({c[2] for c in solve if c[0] == "neighbor_exchange"} == {band}
+          and {c[2] for c in solve if c[0] == "all_reduce_sum"} == {8},
+          "the solve moved more than bands between neighbours or "
+          "all-reduced more than scalars")
+    check(launches["csr_matvec"] > 0 and launches["hex8_stiffness"] > 0,
+          "the halo-gather run launched no K3 or no K1")
+    return launches, comm
 
 
 def same(a, b, path="deck"):
@@ -1140,7 +1531,8 @@ def main():
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import operator, structured
     from fem_tpu_torch.ops.stiffness import lame
-    from fem_tpu_torch.solver import amg, cg, multigrid, newton, stepper
+    from fem_tpu_torch.solver import (amg, cg, hierarchy, multigrid, newton,
+                                      stepper)
 
     # float32 products in the plain versions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1177,6 +1569,7 @@ def main():
                                     size=shape, check_invariants=False)
         return lambda x: torch.mv(A, x)
 
+    stamp("phase 3: K1")
     # 3. K1 against its plain version
     base = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
                      [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], dtype=float)
@@ -1227,6 +1620,7 @@ def main():
                 torch.tensor([0.0, 1.0], dtype=dtype, device=dev)]
         k1_case(pair, tol, f"{name} ne=2 (k_lam/k_mu pair)")
 
+    stamp("phase 4: K2")
     # 4. K2 against its plain version
     lam_s, mu_s = lame(torch.tensor(200e9, dtype=torch.float64),
                        torch.tensor(0.3, dtype=torch.float64))
@@ -1327,6 +1721,7 @@ def main():
     k2_measure(op56, A56)
     del A56
 
+    stamp("phase 5-7: golden deck, direct box, 80^3 solve")
     # 5. CLI on the elastic golden deck, on the card
     deck = "examples/ref/SNES_test/elastic/elastic_test.inp"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1398,6 +1793,7 @@ def main():
           and all(abs(i - 12) <= 1 for i in res.krylov_iters),
           f"80^3 MG-CG iterations {res.krylov_iters}, not 12 +- 1")
     check(tip < 0.0, "80^3 box: the tip load did not deflect the tip down")
+    res7 = res  # phase 23 shards this run
     for name in ("hex8_stiffness", "stencil_matvec"):
         check(launches[name] > 0, f"the 80^3 run launched no {name}")
     # K2 on every level's operator of that run's hierarchy, built as the
@@ -1419,6 +1815,7 @@ def main():
                                      max_abs_err=k2_err81)
     del A_big
 
+    stamp("phase 8: K3")
     # 8. K3 against its plain version on a random table
     def k3_case(t, x, label, reps=50):
         """K3 (table t, an amg.Csr) against its plain version in float64 and
@@ -1491,6 +1888,7 @@ def main():
             "random n=200000 w=81")
     del vals, cols
 
+    stamp("phase 9: permuted 55^3 box")
     # 9. the permuted 55^3 box: set-up phases, K3 on the real tables, and
     # stepper.run through SA-AMG
     def box55(permute):
@@ -1520,33 +1918,30 @@ def main():
         return float(torch.linalg.norm(r) / torch.linalg.norm(b))
 
     perm = box55(permute=True)
-    system, t_sys = sync_wall(torch, lambda: System(perm, torch.float64,
-                                                    device=dev))
+    # the run first, its hierarchy kept as stepper.run builds it (one
+    # amg.build, not a second one for the tables)
+    ck.reset_launches()
+    msgs = []
+    with kept(hierarchy, "build") as built:
+        res, wall = sync_wall(torch, lambda: stepper.run(
+            perm, Config(device="cuda"), log=msgs.append))
+    launches_amg = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    check(len(built) == 1 and built[0].kind == "amg",
+          f"the permuted 55^3 run built {[b.kind for b in built]}")
+    # K3 on that run's own P, R and mid-level tables
+    k3_real = k3_hierarchy(built.pop().hier, "55^3")
+    system = System(perm, torch.float64, device=dev)
     A_csr, t_asm = sync_wall(torch, lambda: amg.assemble_csr(system))
-    hier, t_amg = sync_wall(torch, lambda: amg.build(
-        system, system.bc_dofs, coarse_max=20000, A=A_csr))
-    _, t_op = sync_wall(torch, lambda: operator.build(system))
-    sizes = [system.ndof] + [lv.n_coarse for lv in hier.levels[:-1]]
-    print(f"permuted 55^3 box ({perm.ndof} DOFs) set-up on the host: System "
-          f"{t_sys:.2f} s, assemble_csr {t_asm:.2f} s ({A_csr.nnz} nonzeros), "
-          f"amg.build {t_amg:.2f} s (level sizes {sizes}), fused operator "
-          f"{t_op:.2f} s", flush=True)
-    k3_real = k3_hierarchy(hier, "55^3")
-    del hier
+    print(f"permuted 55^3 box ({perm.ndof} DOFs): assemble_csr {t_asm:.2f} s "
+          f"({A_csr.nnz} nonzeros)", flush=True)
     # the assembled matrix (measured only: the SA branch's fine operator is
     # the fused operator)
     k3_case(amg.Csr.from_csr(A_csr, torch.float64, dev),
             torch.as_tensor(rng.standard_normal(A_csr.shape[0]), device=dev),
             "55^3 assembled A", reps=20)
-
-    ck.reset_launches()
-    msgs = []
-    res, wall = sync_wall(torch, lambda: stepper.run(
-        perm, Config(device="cuda"), log=msgs.append))
-    launches_amg = dict(ck.launches)
-    for m in msgs:
-        if "Interval" not in m:
-            print(f"  stepper: {m.strip()}")
     check(res.path == "unstructured_amg_or_lattice_gmg_cg",
           f"permuted 55^3 box took path {res.path}")
     check(any("smoothed aggregation" in m for m in msgs)
@@ -1567,9 +1962,11 @@ def main():
     check(true_rel <= 1e-8, f"permuted 55^3 true rel residual {true_rel}")
     for name in ("hex8_stiffness", "csr_matvec"):
         check(launches_amg[name] > 0, f"the SA-AMG run launched no {name}")
-    perm55, res9 = perm, res  # phase 22 shards this run
+    # phases 22 and 25 shard this run
+    perm55, res9, A_perm = perm, res, A_csr
     del system, A_csr, u
 
+    stamp("phase 10: lex 55^3 box")
     # 10. the lex-ordered 55^3 box: block stencil + lattice GMG
     lex = box55(permute=False)
     ck.reset_launches()
@@ -1590,7 +1987,9 @@ def main():
     check(bool(torch.isfinite(u).all())
           and bool(np.isfinite(res.aggregate_stress).all()),
           "lex 55^3 solution or stress not finite")
-    true_rel = true_rel_residual(system, amg.assemble_csr(system), u)
+    A_lex = amg.assemble_csr(system)
+    res10 = res  # phase 24 shards this run
+    true_rel = true_rel_residual(system, A_lex, u)
     print(f"lex 55^3 box ({lex.ndof} DOFs, float64): GMG-CG iterations "
           f"{res.krylov_iters}, true rel residual {true_rel:.3e}, "
           f"stepper.run wall {wall:.2f} s, launches {launches_gmg}",
@@ -1600,6 +1999,7 @@ def main():
 
     del system, u
 
+    stamp("phase 11-13: cohesive")
     # 11. the cohesive decks on the card, against the CPU
     coh_deck = "examples/ref/cohesive_test_2.inp"
     fields = {}
@@ -1786,6 +2186,7 @@ def main():
     k3_hierarchy(ops.mg.hier, "strip")
     del ops
 
+    stamp("phase 14-18: creep, resume, trace, gradients, native")
     # 14-15. creep on the card; checkpoint / resume of its 80^3 run
     with tempfile.TemporaryDirectory() as ck_dir:
         res14, saves, launches14, creep14 = phase14_creep(torch, dev, 80,
@@ -1798,15 +2199,42 @@ def main():
     launches_grad = phase17_gradients(torch, dev, k1_inputs)
     # 18. the native parser
     phase18_native(cli_main)
+    stamp("phase 19-21: CLI shards, warm start and W-cycle, refinement")
     # 19. --precond / --shards through the CLI
     phase19_cli_shards(cli_main, vtk)
     # 20. the warm start and the W-cycle at 80^3
     launches_warm, launches_w = phase20_warm_wcycle(torch, dev, 80)
     # 21. float64 MG-CG against f32-inner / f64-refinement at 80^3
     launches_f64, launches_ir = phase21_refinement(torch, dev, 80)
+    stamp("phase 22: element-sharded")
     # 22. the element-sharded rows, 4 shards on this card
-    launches_shd_amg, launches_shd_coh = phase22_sharded(
-        torch, dev, perm55, res9, pstrip, res13, true_rel_residual)
+    (launches_shd_amg, launches_shd_coh, comm_element,
+     sys_perm) = phase22_sharded(torch, dev, perm55, pstrip, res13,
+                                 true_rel_residual)
+    # 23-25. the DOF-sharded tiers, 4 shards on this card
+    stamp("phase 23: slab stencil")
+    (launches_slab4, launches_slab3, k2_slab, comm_psum,
+     comm_slab_halo) = phase23_slab(torch, dev, big, res7, k2_case,
+                                    k2_measure)
+    stamp("phase 24: halo block stencil")
+    launches_halo_block, comm_block = phase24_halo_block(
+        torch, dev, lex, res10, A_lex, true_rel_residual)
+    del A_lex
+    stamp("phase 25: halo-gather")
+    launches_halo_gather, comm_gather = phase25_halo_gather(
+        torch, dev, perm55, sys_perm, res9, A_perm, true_rel_residual)
+    del A_perm, sys_perm
+    stamp("phase 26: collectives by tier")
+    # 26. the collectives of one K.u on every sharded tier (fem_tpu's
+    # dryrun_multichip inventory), 4 shards
+    from fem_tpu_torch.parallel import commcount
+    for tier, comm in (
+            ("element-sharded K.u (permuted 55^3)", comm_element),
+            ("slab stencil matvec_sharded (80^3)", comm_psum),
+            ("slab stencil halo_matvec (80^3)", comm_slab_halo),
+            ("block-stencil halo_matvec_g (lex 55^3)", comm_block),
+            ("halo-gather matvec (permuted 55^3)", comm_gather)):
+        print(commcount.summary(tier, comm), flush=True)
 
     summary["csr_matvec"] = k3_real
     # each path's own launches, each counted from 0 just before its run
@@ -1817,8 +2245,12 @@ def main():
             "resume_80": launches15, "gradients": launches_grad,
             "warm_3step_80": launches_warm, "wcycle_solve_80": launches_w,
             "solve_f64_80": launches_f64, "solve_refined_80": launches_ir,
-            "sharded_amg_55": launches_shd_amg,
-            "sharded_coh_strip_amg": launches_shd_coh}
+            "sharded_amg_plate": launches_shd_amg,
+            "sharded_coh_strip_amg": launches_shd_coh,
+            "sharded_slab_80": launches_slab4,
+            "sharded_slab_80_3shards": launches_slab3,
+            "sharded_halo_block_55": launches_halo_block,
+            "sharded_halo_gather_55": launches_halo_gather}
     # "launches" is the count of the kernel's main path: the 80^3 elastic
     # run for K1 and K2, the 55^3 SA-AMG run for K3
     main_path = {"hex8_stiffness": "elastic_80",
@@ -1831,6 +2263,11 @@ def main():
         "csr_matvec": ("fem_tpu_torch/csrc/csr_matvec.cu",
                        "fem_tpu/ops/pallas_kernels.py:432"),
     }
+    # once more, beside the numbers: a reader of the end of a long log
+    # still learns the card and its power limit
+    print(f"card: {smi}", flush=True)
+    print("K2 on one slab of the 4-shard 80^3 run: " + json.dumps(k2_slab),
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": runs[main_path[name]][name],

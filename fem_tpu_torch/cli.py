@@ -2,8 +2,8 @@
 
 Port of `fem_tpu/cli.py`. Mirrors the reference CLI
 `mpiexec -n <cores> defmod -f <file>` (main.F90:31-33): `--devices N` shards
-the iterative solve's elastic operator by elements over N devices
-(parallel/ops.py), `--shards N` writes one `<rank>_output_000000.vtk` per RCB
+the iterative solve over N devices by the tier that fits the deck
+(solver/stepper.py), `--shards N` writes one `<rank>_output_000000.vtk` per RCB
 shard like the reference's per-rank writers; otherwise `0_output_000000.vtk`
 is written in the working directory like the reference's rank-0 writer
 (m_io.F90:496). Runs on the CUDA device by default; `--device cpu` asks for

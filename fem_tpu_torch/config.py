@@ -72,13 +72,15 @@ class Config:
       timing: log per-phase wall-clock totals (setup / rhs / solve or
         newton / stress) after the run; on a CUDA run each phase then ends
         with a device synchronize, so it holds its device time.
-      n_devices: shard the iterative solve's elastic operator by elements
-        over this many devices (parallel/ops.py; the reference's
-        `mpiexec -n N`). Unstructured and cohesive decks take it; direct
-        solves, formulation "total" and explicit runs ignore it; structured
-        boxes and lex-lattice AMG decks, whose DOF-sharded tiers are not
-        ported yet (ROADMAP A.9), raise NotImplementedError from the
-        stepper's path table.
+      n_devices: shard the iterative solve over this many devices (the
+        reference's `mpiexec -n N`), by the tier that fits the deck
+        (solver/stepper.py): cell slabs of the stencil and of the MG fine
+        level on a structured box; the halo block stencil on a lex-lattice
+        AMG deck; the halo-gather tier, else the element-sharded operator
+        (parallel/ops.py), on any other AMG deck; the element-sharded
+        operator under Jacobi-PCG and under a cohesive deck's matrix-free
+        Newton. Direct solves, formulation "total" and explicit runs ignore
+        it.
     """
 
     device: str = "cuda"

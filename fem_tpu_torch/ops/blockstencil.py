@@ -1,6 +1,7 @@
 """Variable-coefficient block-stencil operator for lattice-topology meshes.
 
-Port of `fem_tpu.ops.blockstencil` (detect, build, matvec). Operator tiers
+Port of `fem_tpu.ops.blockstencil` (detect, build, matvec, and the
+DOF-sharded halo layout). Operator tiers
 of the elastic matvec:
 
   1. ops/structured.py: geometrically uniform boxes, one constant stencil.
@@ -24,16 +25,25 @@ coefficients are vals[n, p, o * pdim + q] for node n, offset o (base-3 lex,
 slowest axis first) and components p, q. One apply stacks the 3^dim shifted
 windows into one (nnds, 3^dim * pdim) tensor and contracts it with vals in
 one batched product.
+
+Over a device mesh (`shard_rows`, `halo_matvec_g`) each shard holds the rows
+of `vals` of a slab of node planes of the leading lattice axis, the vectors
+stay in the same slabs, and one K.u moves exactly two node planes: each
+shard receives its left neighbour's last plane and its right neighbour's
+first. The coefficient slabs are disjoint (the blocks are rooted at rows), so
+only planes of u ever move.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fem_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,13 +136,116 @@ def build(A, pdim: int, dims: Tuple[int, ...], *, dtype=torch.float64,
         dims=tuple(int(d) for d in dims), pdim=int(pdim))
 
 
+def _apply_padded(vals, up, dims: Tuple[int, ...]):
+    """vals (nnds, pdim, 3^dim * pdim) applied to the node grid `dims` given
+    with one more plane on every side, up (*(dims + 2), pdim); returns
+    (*dims, pdim)."""
+    windows = torch.stack([
+        up[tuple(slice(o, o + d) for o, d in zip(offs, dims))]
+        for offs in np.ndindex(*(3,) * len(dims))
+    ], dim=-2)  # (*dims, 3^dim, pdim)
+    out = torch.bmm(vals, windows.view(vals.shape[0], vals.shape[2], 1))
+    return out.view(*dims, vals.shape[1])
+
+
 def matvec(op: BlockStencilOperator, u):
     """A @ u for a flat interleaved (ndof,) vector (the node-major grid)."""
-    nd = len(op.dims)
-    up = F.pad(u.view(*op.dims, op.pdim), [0, 0] + [1, 1] * nd)
-    windows = torch.stack([
-        up[tuple(slice(o, o + d) for o, d in zip(offs, op.dims))]
-        for offs in np.ndindex(*(3,) * nd)
-    ], dim=-2)  # (*dims, 3^dim, pdim)
-    out = torch.bmm(op.vals, windows.view(op.nnds, -1, 1))
-    return out.view(-1)
+    up = F.pad(u.view(*op.dims, op.pdim), [0, 0] + [1, 1] * len(op.dims))
+    return _apply_padded(op.vals, up, op.dims).view(-1)
+
+
+# ---------------------------------------------------------------------------
+# DOF-sharded slab layout (halo exchange)
+# ---------------------------------------------------------------------------
+
+
+def pad_rows(op: BlockStencilOperator, nd: int) -> BlockStencilOperator:
+    """fem_tpu's way to shard a leading axis that nd does not divide, for
+    callers that need equal slabs: phantom node planes with zero coefficient
+    blocks. They couple to nothing (no real row's block points into them),
+    so real rows are exact and phantom outputs are zero. shard_rows cuts
+    unequal slabs instead."""
+    rem = (-op.dims[0]) % nd
+    if rem == 0:
+        return op
+    plane = int(np.prod(op.dims[1:]))
+    vals = torch.cat([op.vals, op.vals.new_zeros(
+        (rem * plane,) + op.vals.shape[1:])])
+    return BlockStencilOperator(vals, (op.dims[0] + rem,) + op.dims[1:],
+                                op.pdim)
+
+
+def embed_rows_g(u_g, nx_pad: int):
+    """(nx, *rest, pdim) -> (nx_pad, *rest, pdim), phantom planes zero."""
+    if u_g.shape[0] == nx_pad:
+        return u_g
+    return torch.cat([u_g, u_g.new_zeros((nx_pad - u_g.shape[0],)
+                                         + u_g.shape[1:])])
+
+
+def vals_to_slabs(op: BlockStencilOperator, nd: int) -> List[torch.Tensor]:
+    """vals -> nd disjoint row slabs (c_i * plane, pdim, 3^dim * pdim), the
+    rows of node planes [start_i, end_i) of the leading axis
+    (mesh.slab_bounds: equal where nd divides it, else the first slabs one
+    plane longer; empty last slabs where there are more shards than
+    planes)."""
+    plane = int(np.prod(op.dims[1:]))
+    return [op.vals[s * plane:e * plane]
+            for s, e in mesh_mod.slab_bounds(op.dims[0], nd)]
+
+
+def u_to_slabs(u_g, nd: int) -> List[torch.Tensor]:
+    """(nx, *rest, pdim) -> nd slabs (c_i, *rest, pdim), cut as vals."""
+    return [u_g[s:e] for s, e in mesh_mod.slab_bounds(u_g.shape[0], nd)]
+
+
+def u_from_slabs(slabs) -> torch.Tensor:
+    """Inverse of u_to_slabs, for slabs on one device."""
+    return torch.cat(list(slabs))
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloBlockStencil:
+    """A BlockStencilOperator's rows dealt out over a mesh: vals[i] on shard
+    i's device."""
+
+    mesh: mesh_mod.DeviceMesh
+    vals: Tuple[torch.Tensor, ...]
+    dims: Tuple[int, ...]
+    pdim: int
+
+    def layout(self) -> mesh_mod.SlabLayout:
+        """Flat (ndof,) vectors on shard 0 to and from this operator's
+        slabs."""
+        gshape, nd = self.dims + (self.pdim,), self.mesh.size
+        return mesh_mod.SlabLayout(
+            self.mesh, lambda v: u_to_slabs(v.view(gshape), nd),
+            lambda slabs: u_from_slabs(slabs).view(-1))
+
+
+def shard_rows(op: BlockStencilOperator,
+               mesh: mesh_mod.DeviceMesh) -> HaloBlockStencil:
+    """Deal op's row slabs out, slab i onto shard i's device."""
+    return HaloBlockStencil(
+        mesh, tuple(mesh_mod.scatter(mesh, vals_to_slabs(op, mesh.size))),
+        op.dims, op.pdim)
+
+
+def halo_matvec_g(hop: HaloBlockStencil, u_slabs) -> List[torch.Tensor]:
+    """K @ u on the slab layout, slab i (c_i, *rest, pdim) on shard i's
+    device: two one-plane exchanges, then the stacked-window product of
+    `matvec` on each slab extended by the two planes received. A shard with
+    no neighbour on a side, or an empty one, gets a zero plane there: its
+    rows have no block on that side."""
+    from_left = mesh_mod.neighbor_exchange(
+        hop.mesh, [u[-1:] for u in u_slabs], 1)
+    from_right = mesh_mod.neighbor_exchange(
+        hop.mesh, [u[:1] for u in u_slabs], -1)
+    pad = [0, 0] + [1, 1] * (len(hop.dims) - 1)
+    out = []
+    for vals, u, lo, hi in zip(hop.vals, u_slabs, from_left, from_right):
+        zero = u.new_zeros((1,) + u.shape[1:])
+        ext = torch.cat([zero if lo is None or not len(lo) else lo, u,
+                         zero if hi is None or not len(hi) else hi])
+        out.append(_apply_padded(vals, F.pad(ext, pad), tuple(u.shape[:-1])))
+    return out

@@ -4,8 +4,11 @@ Port of `fem_tpu/parallel/commcount.py`. fem_tpu walks the jaxpr of a sharded
 function for its psum / ppermute primitives; the port's collectives are the
 functions of parallel/mesh.py, so `collectives` runs the function and
 returns the calls they recorded meanwhile. Same output shape, so the
-closed-form traffic model (fem_tpu's DESIGN.md §5b: one full-vector
-all-reduce per element-sharded K·u) is asserted the same way.
+closed-form traffic model (fem_tpu's DESIGN.md §5b) is asserted the same
+way, per K·u: one full-vector all-reduce on the element-sharded operator and
+on the slab-sharded stencil; two node planes (neighbor_exchange) on the
+stencil's and the block stencil's halo layouts; four (B, pdim) bands on the
+halo-gather operator.
 """
 
 from fem_tpu_torch.parallel import mesh as mesh_mod

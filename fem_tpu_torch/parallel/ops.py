@@ -36,8 +36,8 @@ def _shares(a: torch.Tensor, mesh: mesh_mod.DeviceMesh) -> List[torch.Tensor]:
     """a cut along axis 0 into mesh.size contiguous shares, share i on shard
     i's device (a view where that is a's own device)."""
     ne, n = a.shape[0], mesh.size
-    return [a[ne * i // n:ne * (i + 1) // n].to(d)
-            for i, d in enumerate(mesh.devices)]
+    return mesh_mod.scatter(mesh, [a[ne * i // n:ne * (i + 1) // n]
+                                   for i in range(n)])
 
 
 class ShardedOperator:

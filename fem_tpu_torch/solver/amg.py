@@ -354,20 +354,23 @@ def build(
     coarse_max: int = 1200,
     A=None,
     dense_level_max: int = 8192,
+    coords=None,
 ) -> AMGPrecond:
     """Build the SA-AMG hierarchy for a System's elastic operator. The set-up
     runs on the host; the hierarchy's tensors live on the system's device in
     its dtype. Coarsening stops at `coarse_max` DOFs (the coarsest level is
     inverted densely); mid levels of at most `dense_level_max` DOFs are
     stored dense, larger ones as CSR tables. `A` may be a pre-assembled
-    scipy CSR (BCs NOT yet eliminated) to skip re-assembly."""
+    scipy CSR (BCs NOT yet eliminated) to skip re-assembly; with `coords`
+    (the node coordinates in A's node order, for the rigid-body modes) it
+    may be numbered otherwise than the system, `bc_dofs` in its numbering."""
     dtype, device = system.dtype, system.device
     if A is None:
         A = assemble_csr(system)
     bc = (bc_dofs.cpu().numpy() if torch.is_tensor(bc_dofs)
           else np.asarray(bc_dofs))
     A = _eliminate_bcs(A, bc)
-    coords = np.asarray(system.problem.coords)
+    coords = np.asarray(system.problem.coords if coords is None else coords)
     pdim = system.pdim
     B = rigid_body_modes(coords, pdim, bc)
     ndof = A.shape[0]
@@ -520,23 +523,34 @@ def _chebyshev(matvec, dinv, theta, delta, x, b, degree: int):
     return d if x is None else x + d
 
 
-def v_cycle(h: AMGPrecond, fine_matvec: Callable, r):
+def v_cycle(h: AMGPrecond, fine_matvec: Callable, r, layout=None):
     """One V-cycle; level 0 applies `fine_matvec` (the masked fine
-    operator), deeper levels their own operators."""
-    return _v(h, 0, fine_matvec, r)
+    operator), deeper levels their own operators. With `layout` (a
+    parallel/mesh.SlabLayout) level 0 is DOF-sharded: r, `fine_matvec` and
+    level 0's dinv are ShardedVectors, the residual is gathered for the
+    restriction and the prolonged correction is scattered; the levels below
+    lie where the hierarchy does."""
+    return _v(h, 0, fine_matvec, r, layout)
 
 
-def _v(h: AMGPrecond, i: int, mv: Callable, r):
+def _v(h: AMGPrecond, i: int, mv: Callable, r, layout=None):
     lv = h.levels[i]
+    down, up = ((lambda v: v,) * 2 if layout is None
+                else (layout.gather, layout.scatter))
     if i == len(h.levels) - 1:
-        return h.coarse_inv @ r
+        return up(h.coarse_inv @ down(r))
     x = _chebyshev(mv, lv.dinv, lv.theta, lv.delta, None, r, h.degree)
-    rc = lv.R(r - mv(x))
+    rc = lv.R(down(r - mv(x)))
     nxt = h.levels[i + 1]
     xc = _v(h, i + 1, lambda v: _lv_matvec(nxt, v), rc)
-    x = x + lv.P(xc)
+    x = x + up(lv.P(xc))
     return _chebyshev(mv, lv.dinv, lv.theta, lv.delta, x, r, h.degree)
 
 
-def preconditioner(h: AMGPrecond, fine_matvec: Callable) -> Callable:
-    return lambda r: v_cycle(h, fine_matvec, r)
+def preconditioner(h: AMGPrecond, fine_matvec: Callable,
+                   layout=None) -> Callable:
+    if layout is not None:
+        fine = dataclasses.replace(h.levels[0],
+                                   dinv=layout.scatter(h.levels[0].dinv))
+        h = dataclasses.replace(h, levels=(fine,) + h.levels[1:])
+    return lambda r: v_cycle(h, fine_matvec, r, layout)

@@ -9,6 +9,11 @@ counts).
 BC handling uses the elimination form, operator-side: constrained dofs map
 through the identity and their coupling is masked, keeping the system SPD and
 well-conditioned (the 1e30 penalty would destroy CG convergence).
+
+The vectors are tensors, or parallel/mesh.ShardedVector on the DOF-sharded
+rows of a multi-device run, which has a tensor's arithmetic, `dot` and `norm`:
+the same loop, its updates local to each shard and each dot product and norm
+one scalar all-reduce.
 """
 
 from __future__ import annotations
@@ -57,35 +62,35 @@ def pcg(matvec: Callable, b, x0=None, diag=None, rtol: float = 1e-9,
     if maxiter <= 0:
         maxiter = 10 * b.shape[0]
     if precond is None:
-        minv = 1.0 / diag if diag is not None else torch.ones_like(b)
+        minv = 1.0 / diag if diag is not None else 1.0
         precond = lambda r: minv * r  # noqa: E731
-    tol = max(rtol * float(torch.linalg.norm(b)), atol)
+    tol = max(rtol * float(b.norm()), atol)
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = b.clone().zero_()
         r = b.clone()
     else:
         x = x0.clone()
         r = b - matvec(x0)
-    rnorm = float(torch.linalg.norm(r))
+    rnorm = float(r.norm())
     k = 0
     indef = torch.zeros((), dtype=torch.bool, device=b.device)
     if rnorm > tol:
         z = precond(r)
         p = z
-        rz = torch.dot(r, z)
+        rz = r.dot(z)
         while k < maxiter:
             ap = matvec(p)
-            pap = torch.dot(p, ap)
+            pap = p.dot(ap)
             indef |= pap <= 0.0
             alpha = rz / pap
             x = x + alpha * p
             r = r - alpha * ap
             k += 1
-            rnorm = float(torch.linalg.norm(r))  # the one sync per iteration
+            rnorm = float(r.norm())  # the one sync per iteration
             if rnorm <= tol or not math.isfinite(rnorm):
                 break
             z = precond(r)
-            rz_new = torch.dot(r, z)
+            rz_new = r.dot(z)
             p = z + (rz_new / rz) * p
             rz = rz_new
     return CGResult(x=x, iters=k, resnorm=rnorm, indefinite=bool(indef))

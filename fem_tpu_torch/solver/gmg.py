@@ -239,17 +239,24 @@ def _cheb_g(matvec_g, lv: GMGLevel, x, b, degree: int):
                               degree)
 
 
-def v_cycle_g(h: GMGPrecond, fine_matvec_g: Callable, r_g):
+def v_cycle_g(h: GMGPrecond, fine_matvec_g: Callable, r_g, layout=None):
     """One V-cycle, state (*dims, pdim) at every level; level 0 smooths via
     `fine_matvec_g` (the caller's masked operator on the grid), deeper
-    levels via their own block stencils."""
-    return _v(h, 0, fine_matvec_g, r_g)
+    levels via their own block stencils. With `layout` (a
+    parallel/mesh.SlabLayout) level 0 is DOF-sharded: r_g, `fine_matvec_g`
+    and level 0's dinv_g are ShardedVectors, gathered into the grid for the
+    restriction and scattered after the prolongation."""
+    return _v(h, 0, fine_matvec_g, r_g, layout)
 
 
-def _v(h: GMGPrecond, i: int, mv_g: Callable, r_g):
+def _v(h: GMGPrecond, i: int, mv_g: Callable, r_g, layout=None):
     lv = h.levels[i]
+    gshape = lv.dims + (h.pdim,)
+    down, up = ((lambda v: v,) * 2 if layout is None else
+                (lambda v: layout.gather(v).view(gshape),
+                 lambda g: layout.scatter(g.reshape(-1))))
     x = _cheb_g(mv_g, lv, None, r_g, h.degree)
-    rc = restrict_g(r_g - mv_g(x), lv.coarsen)
+    rc = restrict_g(down(r_g - mv_g(x)), lv.coarsen)
     if i + 1 == len(h.levels):
         # the grid state flattened is the interleaved dof order
         xc = (h.coarse_inv @ rc.reshape(-1)).view(rc.shape)
@@ -257,13 +264,20 @@ def _v(h: GMGPrecond, i: int, mv_g: Callable, r_g):
         nxt = h.levels[i + 1]
         xc = _v(h, i + 1,
                 lambda v: bs.matvec(nxt.op, v.reshape(-1)).view(v.shape), rc)
-    x = x + prolong_g(xc, lv.dims, lv.coarsen)
+    x = x + up(prolong_g(xc, lv.dims, lv.coarsen))
     return _cheb_g(mv_g, lv, x, r_g, h.degree)
 
 
-def preconditioner(h: GMGPrecond, fine_matvec: Callable) -> Callable:
+def preconditioner(h: GMGPrecond, fine_matvec: Callable,
+                   layout=None) -> Callable:
     """Flat (ndof,) preconditioner around v_cycle_g; `fine_matvec` is the
-    caller's flat masked fine operator."""
+    caller's flat masked fine operator. With `layout`, r and `fine_matvec`
+    are ShardedVectors (see v_cycle_g)."""
+    if layout is not None:
+        fine = dataclasses.replace(
+            h.levels[0], dinv_g=layout.scatter(h.levels[0].dinv_g.reshape(-1)))
+        h = dataclasses.replace(h, levels=(fine,) + h.levels[1:])
+        return lambda r: v_cycle_g(h, fine_matvec, r, layout)
     gshape = h.levels[0].dims + (h.pdim,)
 
     def mv_g(v):

@@ -32,21 +32,25 @@ class FineAndHierarchy(NamedTuple):
     t_op: float  # host seconds: detection and the fine operator
     t_hier: float  # host seconds: the hierarchy
 
-    def preconditioner(self, masked_fine: Callable) -> Callable:
+    def preconditioner(self, masked_fine: Callable, layout=None) -> Callable:
         mod = gmg if self.kind == "gmg" else amg
-        return mod.preconditioner(self.hier, masked_fine)
+        return mod.preconditioner(self.hier, masked_fine, layout)
 
 
 def build(system, A_el, A_hier=None, gmg_min: int = 0,
           coarse_max: int = 1200,
-          fine: Optional[Callable] = None) -> FineAndHierarchy:
+          fine: Optional[Callable] = None, bc_dofs=None,
+          coords=None) -> FineAndHierarchy:
     """The fine operator of `A_el` and the hierarchy of `A_hier` (default
     `A_el`); `coarse_max` is SA-AMG's dense coarse size. A given `fine`
-    (the element-sharded K_el v of a multi-device run) is kept as the fine
-    operator; the hierarchy is chosen as without it."""
+    (the sharded K_el v of a multi-device run) is kept as the fine
+    operator; the hierarchy is chosen as without it. `bc_dofs` and `coords`
+    (default: the system's) say so in A_el's numbering where it is not the
+    system's (the slab order of the halo-gather tier)."""
     dtype, dev = system.dtype, system.device
     pdim, n = system.pdim, system.ndof
     A_hier = A_el if A_hier is None else A_hier
+    bc_dofs = system.bc_dofs if bc_dofs is None else bc_dofs
     t0 = time.perf_counter()
     dims = blockstencil.detect(A_el, pdim, n // pdim)
     if fine is None and dims is not None:
@@ -59,7 +63,7 @@ def build(system, A_el, A_hier=None, gmg_min: int = 0,
     t0 = time.perf_counter()
     hier = None
     if dims is not None and n > gmg_min:
-        hier = gmg.build_lattice(A_hier, pdim, dims, bc_dofs=system.bc_dofs,
+        hier = gmg.build_lattice(A_hier, pdim, dims, bc_dofs=bc_dofs,
                                  dtype=dtype, device=dev)
     if hier is not None:
         kind = "gmg"
@@ -67,8 +71,8 @@ def build(system, A_el, A_hier=None, gmg_min: int = 0,
             hier.coarse_inv.shape[0]]
     else:
         kind = "amg"
-        hier = amg.build(system, system.bc_dofs, coarse_max=coarse_max,
-                         A=A_hier)
+        hier = amg.build(system, bc_dofs, coarse_max=coarse_max, A=A_hier,
+                         coords=coords)
         sizes = [n] + [lv.n_coarse for lv in hier.levels[:-1]]
     return FineAndHierarchy(fine=fine, dims=dims, kind=kind, hier=hier,
                             sizes=sizes, t_op=t_op,

@@ -8,12 +8,18 @@ dense coarsest solve, all on the operator's device.
 
 Coarse stencils are re-discretized (lam/mu fields average-pooled), Dirichlet
 masks restricted by injection. Grid-shaped (*shape, pdim) state throughout.
+
+Over a device mesh the cycle takes the fine level's K.u as an argument
+(`fine_matvec`, the slab-sharded structured.matvec_sharded): the fine level's
+smoother and residual then run sharded, and the coarser levels, each about
+2^-pdim of the work, where the hierarchy lies (shard 0), as in fem_tpu's
+v_cycle_host_sharded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -164,44 +170,48 @@ def _gshape(level: MGLevel):
     return level.op.shape + (level.op.pdim,)
 
 
-def _masked_matvec_g(level: MGLevel, xg):
-    """Masked operator P A P + (I - P) on grid-shaped (*shape, pdim) state."""
+def _masked_matvec_g(level: MGLevel, xg, matvec: Optional[Callable] = None):
+    """Masked operator P A P + (I - P) on grid-shaped (*shape, pdim) state;
+    `matvec` (flat to flat) stands in for the level's own K.u."""
     mf = level.maskf.reshape(_gshape(level))
     keep = 1.0 - mf
-    return structured.matvec_g(level.op, xg * keep) * keep + xg * mf
+    xk = xg * keep
+    ax = (structured.matvec_g(level.op, xk) if matvec is None
+          else matvec(xk.reshape(-1)).reshape(xg.shape))
+    return ax * keep + xg * mf
 
 
-def _smooth_g(level: MGLevel, omega, xg, bg, iters: int):
+def _smooth_g(level: MGLevel, omega, xg, bg, iters: int, matvec=None):
     """`iters` damped-Jacobi sweeps."""
     dg = level.diag.reshape(_gshape(level))
     for _ in range(iters):
-        r = bg - _masked_matvec_g(level, xg)
+        r = bg - _masked_matvec_g(level, xg, matvec)
         xg = xg + omega * r / dg
     return xg
 
 
-def _cheb_g(level: MGLevel, degree: int, xg, bg):
+def _cheb_g(level: MGLevel, degree: int, xg, bg, matvec=None):
     """Degree-`degree` Chebyshev smoothing of D^-1 A on the level's
     [theta-delta, theta+delta] interval (solver/amg._chebyshev's recurrence)."""
     dg = level.diag.reshape(_gshape(level))
     theta, delta = level.theta, level.delta
     sigma = theta / delta
     rho = 1.0 / sigma
-    r = (bg - _masked_matvec_g(level, xg)) / dg
+    r = (bg - _masked_matvec_g(level, xg, matvec)) / dg
     d = r / theta
     for _ in range(degree - 1):
         xg = xg + d
-        r = r - _masked_matvec_g(level, d) / dg
+        r = r - _masked_matvec_g(level, d, matvec) / dg
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
         rho = rho_new
     return xg + d
 
 
-def _smooth(h: MGHierarchy, level: MGLevel, xg, bg, iters: int):
+def _smooth(h: MGHierarchy, level: MGLevel, xg, bg, iters: int, matvec=None):
     if h.smoother == "chebyshev":
-        return _cheb_g(level, h.degree, xg, bg)
-    return _smooth_g(level, h.omega, xg, bg, iters)
+        return _cheb_g(level, h.degree, xg, bg, matvec)
+    return _smooth_g(level, h.omega, xg, bg, iters, matvec)
 
 
 def _interp_axis(a, axis):
@@ -246,23 +256,28 @@ def restrict_g(rfg, pdim):
     return rfg
 
 
-def v_cycle(h: MGHierarchy, r):
+def v_cycle(h: MGHierarchy, r, fine_matvec: Optional[Callable] = None):
     """One V(nu_pre, nu_post) cycle (a W-cycle with h.gamma = 2) on a flat
-    (ndof,) residual; linear and symmetric, so a valid CG preconditioner."""
-    return _v_g(h, 0, r.reshape(_gshape(h.levels[0]))).reshape(-1)
+    (ndof,) residual; linear and symmetric, so a valid CG preconditioner.
+    `fine_matvec` (flat to flat) applies the fine level's K.u in place of
+    the level's own operator."""
+    return _v_g(h, 0, r.reshape(_gshape(h.levels[0])),
+                fine_matvec).reshape(-1)
 
 
-def _v_g(h: MGHierarchy, idx: int, rg):
+def _v_g(h: MGHierarchy, idx: int, rg, matvec=None):
+    """Level idx of the cycle; `matvec` is this level's K.u when it is not
+    the level operator's own (the fine level over a mesh)."""
     level = h.levels[idx]
     if idx == len(h.levels) - 1:
         if h.coarse_smooth:
             return _smooth_g(level, h.omega, torch.zeros_like(rg), rg,
-                             h.coarse_smooth)
+                             h.coarse_smooth, matvec)
         return (h.coarse_inv @ rg.reshape(-1)).reshape(rg.shape)
     pdim = level.op.pdim
     keep = 1.0 - level.maskf.reshape(rg.shape)
-    x = _smooth(h, level, torch.zeros_like(rg), rg, h.nu_pre)
-    res = (rg - _masked_matvec_g(level, x)) * keep
+    x = _smooth(h, level, torch.zeros_like(rg), rg, h.nu_pre, matvec)
+    res = (rg - _masked_matvec_g(level, x, matvec)) * keep
     coarse = h.levels[idx + 1]
     keep_c = 1.0 - coarse.maskf.reshape(_gshape(coarse))
     rc = restrict_g(res, pdim) * keep_c
@@ -273,8 +288,9 @@ def _v_g(h: MGHierarchy, idx: int, rg):
         rc2 = (rc - _masked_matvec_g(coarse, xc)) * keep_c
         xc = xc + _v_g(h, idx + 1, rc2) * keep_c
     x = x + prolong_g(xc, pdim)
-    return _smooth(h, level, x, rg, h.nu_post)
+    return _smooth(h, level, x, rg, h.nu_post, matvec)
 
 
-def preconditioner(h: MGHierarchy) -> Callable:
-    return lambda r: v_cycle(h, r)
+def preconditioner(h: MGHierarchy,
+                   fine_matvec: Optional[Callable] = None) -> Callable:
+    return lambda r: v_cycle(h, r, fine_matvec)

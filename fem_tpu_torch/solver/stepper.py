@@ -10,16 +10,26 @@ aggregate_stress += nodal stress of the increment.
 (main.F90:199,238).
 
 The solver path is chosen by one table, PATHS: the first row whose predicate
-holds for the problem's features names the path. The row of a path that is
-not ported yet (the DOF-sharded tiers of a multi-device run) raises
-NotImplementedError naming its ROADMAP item. Every setup returns one
+holds for the problem's features names the path. Every setup returns one
 step(F, du_prev, aggregate_u, t_end) -> Increment.
 
 Config.n_devices > 1 (the reference's `mpiexec -n N`, fem_tpu
-`stepper.py:294-314,869-1011`) shards the elastic operator by elements over a
-device mesh (parallel/ops.ShardedOperator) on the unstructured rows and under
-the matrix-free Newton; direct solves, formulation "total" and explicit runs
-ignore it, as in fem_tpu.
+`stepper.py:294-314,380-446,562-1011`) shards the solve over a device mesh
+(parallel/mesh.py), by the tier that fits the deck:
+  - a structured box: cell slabs of the stencil, u replicated, one all-reduce
+    per K.u, and the V-cycle's fine level on the same slabs
+    (`sharded_slab_stencil`);
+  - a lex-lattice AMG deck: the block stencil's rows and the Krylov vectors
+    in slabs of node planes, two planes per K.u
+    (`sharded_halo_block_stencil`);
+  - any other AMG deck: the halo-gather tier (parallel/halo_gather.py, the
+    vectors in slabs of the coordinate order, four bands per K.u) where the
+    mesh has one element type and slab locality, else the element-sharded
+    operator (parallel/ops.ShardedOperator, one all-reduce per K.u)
+    (`sharded_amg_cg`);
+  - below the AMG threshold, and under the matrix-free Newton of a cohesive
+    deck: the element-sharded operator.
+Direct solves, formulation "total" and explicit runs ignore it, as in fem_tpu.
 
 Viscoelastic creep (Config.viscoelastic) is not a path: on every linear row
 it adds System.creep_force of the per-ip creep state to the step's RHS, and
@@ -45,6 +55,7 @@ from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.models.system import PENALTY, System
 from fem_tpu_torch.ops import blockstencil, structured
 from fem_tpu_torch.ops.stiffness import lame
+from fem_tpu_torch.parallel import halo_gather
 from fem_tpu_torch.parallel import mesh as mesh_mod
 from fem_tpu_torch.parallel.ops import ShardedOperator
 from fem_tpu_torch.solver import amg, cg, direct, hierarchy, multigrid, newton
@@ -67,29 +78,26 @@ class Features:
     lattice: Callable[[], bool] = lambda: False
 
 
-# (path name, predicate on Features, ROADMAP item when not ported yet).
-# A cohesive deck shards its elastic operator inside its own row.
+# (path name, predicate on Features). A cohesive deck shards its elastic
+# operator inside its own row.
 PATHS = (
-    ("explicit", lambda f: f.explicit, None),
-    ("cohesive_newton", lambda f: f.cohesive, None),
-    ("direct", lambda f: f.solver == "direct", None),
-    ("sharded_slab_stencil", lambda f: f.sharded and f.structured, "A.9"),
+    ("explicit", lambda f: f.explicit),
+    ("cohesive_newton", lambda f: f.cohesive),
+    ("direct", lambda f: f.solver == "direct"),
+    ("sharded_slab_stencil", lambda f: f.sharded and f.structured),
     ("sharded_halo_block_stencil",
-     lambda f: f.sharded and f.precond == "amg" and f.lattice(), "A.9"),
-    ("sharded_amg_cg", lambda f: f.sharded and f.precond == "amg", None),
-    ("sharded_jacobi_cg", lambda f: f.sharded, None),
-    ("structured_mg_cg", lambda f: f.structured, None),
-    ("unstructured_amg_or_lattice_gmg_cg", lambda f: f.precond == "amg", None),
-    ("unstructured_jacobi_cg", lambda f: True, None),
+     lambda f: f.sharded and f.precond == "amg" and f.lattice()),
+    ("sharded_amg_cg", lambda f: f.sharded and f.precond == "amg"),
+    ("sharded_jacobi_cg", lambda f: f.sharded),
+    ("structured_mg_cg", lambda f: f.structured),
+    ("unstructured_amg_or_lattice_gmg_cg", lambda f: f.precond == "amg"),
+    ("unstructured_jacobi_cg", lambda f: True),
 )
 
 
 def choose_path(f: Features) -> str:
-    for name, applies, roadmap in PATHS:
+    for name, applies in PATHS:
         if applies(f):
-            if roadmap is not None:
-                raise NotImplementedError(
-                    f"solver path {name!r} is not ported yet (ROADMAP {roadmap})")
             return name
     raise AssertionError("the last row of PATHS always applies")
 
@@ -158,7 +166,8 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
                       log):
     """Stencil operator + Chebyshev-smoothed geometric multigrid + PCG in the
     config dtype at every size, warm-started from the last increment (the
-    reference never zeroes Vec_U; fem_tpu's stepper.py:506-509,545-553).
+    reference never zeroes Vec_U; fem_tpu's stepper.py:506-509,545-553); with
+    Config.n_devices > 1 on cell slabs over the device mesh.
 
     fem_tpu solves decks above its `structured_big_threshold` with a float32
     inner MG-CG under float64 refinement, because a TPU emulates float64.
@@ -177,19 +186,44 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     op = structured.build(spec["cell_sizes"], spec["node_shape"], lam, mu,
                           dtype=dtype, device=dev)
     hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
+    if config.n_devices and config.n_devices > 1:
+        # fem_tpu's stepper.py:380-446: the CG's K.u and the V-cycle's fine
+        # level run on cell slabs of the leading axis, u replicated, one
+        # all-reduce per K.u. fem_tpu pads a cell count that the device
+        # count does not divide with zero-material phantom cells (per-cell
+        # fields on every shard) and leaves that run's V-cycle unsharded;
+        # slabs here may differ by one cell, so every shard keeps the scalar
+        # operator (K2) and the fine level is sharded either way
+        mesh = _make_mesh(system, config, log)
+        slabs = structured.shard_slabs(op, mesh)
+        sizes = [e - s for s, e in slabs.bounds]
+        log("    Stencil matvec sharded (slab + psum halo)"
+            if len(set(sizes)) == 1 else
+            f"    Stencil matvec sharded ({sum(sizes)} cells in unequal slabs "
+            f"of {sizes} over {mesh.size} devices)")
+        log("    MG fine level sharded over the slab mesh")
+
+        def raw(v):
+            return structured.matvec_sharded(slabs, v)
+
+        pc = multigrid.preconditioner(hier, raw)
+    else:
+        def raw(v):
+            return structured.matvec(op, v)
+
+        pc = multigrid.preconditioner(hier)
     bc_mask = torch.zeros(system.ndof, dtype=torch.bool, device=dev)
     bc_mask[system.bc_dofs] = True
-    masked = cg.masked_operator(lambda v: structured.matvec(op, v), bc_mask)
+    masked = cg.masked_operator(raw, bc_mask)
     mf = bc_mask.to(dtype)
     ubc = torch.zeros(system.ndof, dtype=dtype, device=dev)
     ubc[system.bc_dofs] = system.bc_step_vals()
 
     def step(F, du_prev, aggregate_u, t_end):
-        b = cg.constrained_rhs(lambda v: structured.matvec(op, v), F,
-                               bc_mask, ubc)
+        b = cg.constrained_rhs(raw, F, bc_mask, ubc)
         # warm start (the reference never zeroes Vec_U)
         res = cg.pcg(masked, b, x0=torch.where(bc_mask, ubc, du_prev),
-                     precond=multigrid.preconditioner(hier),
+                     precond=pc,
                      rtol=config.rtol or 1e-9, atol=config.atol,
                      maxiter=config.maxiter or 400)
         return Increment(res.x * (1.0 - mf) + ubc * mf, res.iters)
@@ -197,8 +231,23 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     return step
 
 
+class _Sharded(NamedTuple):
+    """What a sharded row gives _setup_unstructured in place of its own."""
+
+    fine: Callable  # v -> K_el v, on the state the layout makes
+    # DOF-sharded tiers: the solve's vectors are ShardedVectors from its
+    # start to its end; None where the state stays a tensor on shard 0
+    layout: Optional[mesh_mod.SlabLayout] = None
+    # halo-gather: the state and the hierarchy are in slab order,
+    # v_slab = v[order]; bc_dofs and coords are the system's in that order
+    order: Optional[torch.Tensor] = None
+    bc_dofs: Optional[np.ndarray] = None
+    coords: Optional[np.ndarray] = None
+    gmg: bool = True  # whether a lattice may take GMG
+
+
 def _setup_unstructured(system: System, config: Config, solver: str, spec,
-                        log, A_csr=None, fine=None):
+                        log, A_csr=None, sharded: Optional[_Sharded] = None):
     """Unstructured meshes at scale, the any-mesh half of MUMPS' role
     (main.F90:354-390; fem_tpu's stepper.py:1012-1237 in float64 at every
     size): the assembled CSR on the host picks the fine operator (a block
@@ -207,20 +256,25 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     lattices above `gmg_min` DOFs, else SA-AMG with a dense coarse inverse
     up to 20,000 DOFs) of a masked PCG, warm-started from the last
     increment. A GMG solve that ends non-finite or unconverged demotes the
-    run to SA-AMG and solves again. `fine` (the sharded row's operator)
-    takes the fine operator's place, `A_csr` the assembly's."""
+    run to SA-AMG and solves again. A sharded row gives its operator in the
+    fine operator's place (`sharded`) and the matrix it assembled (`A_csr`,
+    in the state's order); on a DOF-sharded row the vectors enter the
+    row's layout when a step's solve begins and leave it when it ends."""
     log("    AMG preconditioner (smoothed aggregation)")
     dtype, dev = system.dtype, system.device
     n = system.ndof
+    sh = sharded or _Sharded(fine=None)
     t_asm = "by the path choice"
     if A_csr is None:
         t0 = time.perf_counter()
         A_csr = amg.assemble_csr(system)
         t_asm = f"{time.perf_counter() - t0:.2f} s"
-    fh = hierarchy.build(system, A_csr, gmg_min=config.gmg_min,
-                         coarse_max=20000, fine=fine)
+    fh = hierarchy.build(system, A_csr,
+                         gmg_min=config.gmg_min if sh.gmg else n,
+                         coarse_max=20000, fine=sh.fine, bc_dofs=sh.bc_dofs,
+                         coords=sh.coords)
     del A_csr
-    if fh.dims is not None and fine is None:
+    if fh.dims is not None and sharded is None:
         log("    Lattice topology: block-stencil fine operator")
     if fh.kind == "gmg":
         log("    Geometric lattice-MG preconditioner")
@@ -233,8 +287,25 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     mf = bc_mask.to(dtype)
     ubc = torch.zeros(n, dtype=dtype, device=dev)
     ubc[system.bc_dofs] = system.bc_step_vals()
-    masked = cg.masked_operator(fine, bc_mask)
-    state = {"pc": fh.preconditioner(masked), "gmg": fh.kind == "gmg"}
+
+    def enter(v):
+        """A flat vector of the deck into the solve's state."""
+        if sh.layout is None:
+            return v
+        return sh.layout.scatter(v if sh.order is None else v[sh.order])
+
+    def leave(v):
+        if sh.layout is None:
+            return v
+        v = sh.layout.gather(v)
+        if sh.order is None:
+            return v
+        return torch.empty_like(v).index_copy_(0, sh.order, v)
+
+    mask_s, ubc_s = enter(bc_mask), enter(ubc)
+    masked = cg.masked_operator(fine, mask_s)
+    state = {"pc": fh.preconditioner(masked, sh.layout),
+             "gmg": fh.kind == "gmg"}
     cap = config.maxiter or 400
 
     def pcg(b, x0):
@@ -243,8 +314,8 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
                       maxiter=cap)
 
     def step(F, du_prev, aggregate_u, t_end):
-        b = cg.constrained_rhs(fine, F, bc_mask, ubc)
-        x0 = torch.where(bc_mask, ubc, du_prev)
+        b = cg.constrained_rhs(fine, enter(F), mask_s, ubc_s)
+        x0 = enter(torch.where(bc_mask, ubc, du_prev))
         res = pcg(b, x0)
         if state["gmg"] and not (math.isfinite(res.resnorm)
                                  and res.iters < cap):
@@ -253,9 +324,10 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
                    else f"{res.iters} inner iterations")
                 + ") -> SA-AMG demotion")
             h = amg.build(system, system.bc_dofs, coarse_max=20000)
-            state.update(pc=amg.preconditioner(h, masked), gmg=False)
+            state.update(pc=amg.preconditioner(h, masked, sh.layout),
+                         gmg=False)
             res = pcg(b, x0)
-        return Increment(res.x * (1.0 - mf) + ubc * mf, res.iters)
+        return Increment(leave(res.x) * (1.0 - mf) + ubc * mf, res.iters)
 
     return step
 
@@ -275,12 +347,17 @@ def _setup_jacobi(system: System, config: Config, solver: str, spec, log):
     return step
 
 
-def _sharded_operator(system: System, config: Config, log) -> ShardedOperator:
-    """The elastic operator sharded by elements over config.n_devices (the
-    reference's `mpiexec -n <cores>`, main.F90:32)."""
+def _make_mesh(system: System, config: Config, log) -> mesh_mod.DeviceMesh:
+    """The mesh of config.n_devices shards (the reference's
+    `mpiexec -n <cores>`, main.F90:32)."""
     mesh = mesh_mod.make_mesh(config.n_devices, device=system.device)
     log(f"    Sharding over {config.n_devices} devices ({mesh.describe()})")
-    return ShardedOperator(system, mesh)
+    return mesh
+
+
+def _sharded_operator(system: System, config: Config, log) -> ShardedOperator:
+    """The elastic operator sharded by elements over config.n_devices."""
+    return ShardedOperator(system, _make_mesh(system, config, log))
 
 
 def _setup_sharded_jacobi(system: System, config: Config, solver: str, spec,
@@ -301,23 +378,70 @@ def _setup_sharded_jacobi(system: System, config: Config, solver: str, spec,
     return step
 
 
+def _setup_halo_block(system: System, config: Config, solver: str, A_csr,
+                      log):
+    """A lex-lattice AMG deck over several devices (fem_tpu's
+    stepper.py:562-730, in float64 throughout): the block stencil's rows and
+    the Krylov vectors lie in slabs of node planes, one slab per shard, and
+    every fine K.u, the CG's and the V-cycle smoother's alike, moves two
+    node planes. The hierarchy is the single-device row's (lattice GMG above
+    `gmg_min` DOFs, else SA-AMG, the demotion kept); its coarse levels lie
+    on shard 0, and the cycle gathers the fine residual and scatters the
+    prolonged correction."""
+    mesh = _make_mesh(system, config, log)
+    log("    Lattice topology: DOF-sharded halo block stencil")
+    dims = blockstencil.detect(A_csr, system.pdim, system.nnds)
+    hop = blockstencil.shard_rows(
+        blockstencil.build(A_csr, system.pdim, dims, dtype=system.dtype,
+                           device=system.device), mesh)
+
+    def fine(v):
+        return mesh_mod.ShardedVector(
+            mesh, blockstencil.halo_matvec_g(hop, v.parts))
+
+    return _setup_unstructured(system, config, solver, None, log, A_csr=A_csr,
+                               sharded=_Sharded(fine, hop.layout()))
+
+
 def _setup_sharded_amg(system: System, config: Config, solver: str, A_csr,
                        log):
-    """_setup_unstructured's SA-AMG solve with the element-sharded operator
-    as its fine operator (fem_tpu's stepper.py:869-998, in float64
-    throughout): the CG matvec and the V-cycle's fine-level smoother and
-    residual run sharded, one all-reduce each; the coarse levels (K3
-    transfers, dense coarse inverse) are replicated on shard 0. `A_csr` is
-    the matrix the path choice assembled for its lattice check. fem_tpu
-    prefers its DOF-sharded halo-gather tier here (stepper.py:731-868) and
-    falls back to this one; until that tier is ported (ROADMAP A.9) every
-    general AMG deck takes this one: same answer, more communication."""
-    sop = _sharded_operator(system, config, log)
-    log("    Fused operator sharded over the device mesh (element-sharded "
-        "tier; the halo-gather tier is not ported yet)")
-    log("    AMG preconditioner over the sharded operator")
-    return _setup_unstructured(system, config, solver, None, log,
-                               A_csr=A_csr, fine=sop.matvec)
+    """A general AMG deck over several devices (fem_tpu's
+    stepper.py:731-998, in float64 throughout). Preferred: the DOF-sharded
+    halo-gather tier, four (B, pdim) bands per K.u, with SA-AMG built on the
+    slab-permuted matrix so that the cycle runs on slab-ordered state with
+    no permutation per iteration. Where that layout does not apply (several
+    element blocks, or no slab locality): the element-sharded operator, the
+    state replicated and one all-reduce per K.u. Either way the coarse
+    levels (K3 transfers, dense coarse inverse) lie on shard 0. `A_csr` is
+    the matrix the path choice assembled for its lattice check."""
+    mesh = _make_mesh(system, config, log)
+    try:
+        hg, pos = halo_gather.build(system, mesh)
+    except ValueError as e:
+        log(f"    (halo-gather layout unavailable: {e})")
+        log("    Fused operator sharded over the device mesh "
+            "(element-sharded tier)")
+        log("    AMG preconditioner over the sharded operator")
+        sop = ShardedOperator(system, mesh)
+        return _setup_unstructured(system, config, solver, None, log,
+                                   A_csr=A_csr, sharded=_Sharded(sop.matvec))
+    log(f"    DOF-sharded halo-gather operator (S={hg.S}, B={hg.B})")
+    log("    AMG preconditioner on the slab-permuted operator")
+    pdim = system.pdim
+    idx = halo_gather.dof_order(pos, pdim)
+    bc = system.bc_dofs.cpu().numpy()
+
+    def fine(v):
+        return mesh_mod.ShardedVector(mesh, halo_gather.matvec(hg, v.parts))
+
+    return _setup_unstructured(
+        system, config, solver, None, log, A_csr=A_csr[idx][:, idx],
+        sharded=_Sharded(
+            fine, hg.layout(),
+            order=torch.as_tensor(idx, device=system.device),
+            bc_dofs=pos[bc // pdim] * pdim + bc % pdim,
+            coords=np.asarray(system.problem.coords)[np.argsort(pos)],
+            gmg=False))
 
 
 def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
@@ -363,7 +487,9 @@ _SETUP = {
     "cohesive_newton": _setup_cohesive,
     "direct": _setup_direct,
     "sharded_amg_cg": _setup_sharded_amg,
+    "sharded_halo_block_stencil": _setup_halo_block,
     "sharded_jacobi_cg": _setup_sharded_jacobi,
+    "sharded_slab_stencil": _setup_structured,
     "structured_mg_cg": _setup_structured,
     "unstructured_amg_or_lattice_gmg_cg": _setup_unstructured,
     "unstructured_jacobi_cg": _setup_jacobi,

@@ -1,10 +1,17 @@
-"""The communication model of the element-sharded operator, counted.
+"""The communication model of the sharded operators, counted.
 
 fem_tpu validates its per-apply traffic model (DESIGN.md §5b) by counting
 the collectives in its traced programs (tests/test_comm_model.py); the port
-counts the calls of its two collectives (parallel/mesh.py) through
-parallel/commcount.py. Element-sharded K.u: ONE full-vector all-reduce,
-ndof * itemsize operand bytes, whatever the number of shards."""
+counts the calls of its collectives (parallel/mesh.py) through
+parallel/commcount.py, on pre-sharded input. With n cells a side, p = pdim,
+w = itemsize:
+  plane_bytes = (n + 1)^2 p w                       (one boundary node plane)
+  slab stencil halo  (structured.halo_matvec):      2 plane_bytes per K.u
+  block-stencil halo (blockstencil.halo_matvec_g):  2 plane_bytes per K.u
+  halo-gather        (halo_gather.matvec):          4 B p w per K.u
+  slab stencil, u replicated (matvec_sharded) and the element-sharded
+  operator: ONE full-vector all-reduce, ndof w operand bytes, whatever the
+  number of shards."""
 
 import numpy as np
 import pytest
@@ -12,9 +19,14 @@ import torch
 
 from fem_tpu_torch.io import meshgen
 from fem_tpu_torch.models.system import System
-from fem_tpu_torch.parallel import commcount
+from fem_tpu_torch.ops import blockstencil as bs
+from fem_tpu_torch.ops import structured
+from fem_tpu_torch.ops.stiffness import lame
+from fem_tpu_torch.parallel import commcount, halo_gather
+from fem_tpu_torch.parallel import mesh as mesh_mod
 from fem_tpu_torch.parallel.mesh import make_mesh
 from fem_tpu_torch.parallel.ops import ShardedOperator, solve_step_sharded
+from fem_tpu_torch.solver import amg
 
 torch.set_num_threads(1)
 
@@ -24,6 +36,85 @@ def system():
     return System(meshgen.quad_grid_problem(12, 7, E=100.0, nu=0.3,
                                             tip_force=(0.0, -1.0)),
                   device="cpu")
+
+
+def names(cols):
+    return [c[0] for c in cols]
+
+
+@pytest.mark.parametrize("fields", [False, True], ids=["scalar", "fields"])
+def test_slab_stencil_halo_two_planes(fields):
+    """fem_tpu's test_slab_stencil_halo_two_planes: 8^3 cells, 4 shards."""
+    n, nd = 8, 4
+    lam, mu = lame(torch.tensor(70.0, dtype=torch.float64),
+                   torch.tensor(0.25, dtype=torch.float64))
+    if fields:
+        lam, mu = lam * torch.ones((n,) * 3), mu * torch.ones((n,) * 3)
+    op = structured.build((1.0 / n,) * 3, (n + 1,) * 3, lam, mu,
+                          device="cpu")
+    mesh = make_mesh(nd, device="cpu")
+    sl = structured.shard_slabs(op, mesh)
+    u = torch.ones(op.ndof, dtype=torch.float64)
+    ub = mesh_mod.scatter(mesh, structured.to_blocks(sl, u))
+    cols = commcount.collectives(structured.halo_matvec, sl, ub)
+    plane_bytes = (n + 1) ** 2 * op.pdim * u.element_size()
+    assert cols == [("neighbor_exchange", (n + 1, n + 1, 3), plane_bytes)] * 2
+    # the replicated-u form: one all-reduce of the whole grid
+    cols = commcount.collectives(structured.matvec_sharded, sl, u)
+    assert sorted(cols) == [("all_reduce_sum", (op.ndof,), op.ndof * 8),
+                            ("replicate", (op.ndof,), op.ndof * 8)]
+
+
+@pytest.mark.parametrize("nd", [4, 3])
+def test_blockstencil_halo_two_planes(nd):
+    """fem_tpu's test_blockstencil_halo_two_planes: the jittered 6^3 box;
+    7 node planes over 4 and over 3 shards, the same two planes."""
+    n = 6
+    s = System(meshgen.hex_box_problem(n, n, n, jitter=0.2), device="cpu")
+    A = amg.assemble_csr(s)
+    op = bs.build(A, s.pdim, bs.detect(A, s.pdim, s.nnds), device="cpu")
+    mesh = make_mesh(nd, device="cpu")
+    hop = bs.shard_rows(op, mesh)
+    u_b = hop.layout().scatter(torch.ones(s.ndof, dtype=torch.float64))
+    cols = commcount.collectives(bs.halo_matvec_g, hop, u_b.parts)
+    plane_bytes = (n + 1) ** 2 * op.pdim * 8
+    assert cols == [("neighbor_exchange", (1, n + 1, n + 1, 3),
+                     plane_bytes)] * 2
+
+
+def test_halo_gather_four_bands():
+    """fem_tpu's test_halo_gather_four_bands: four (B, pdim) bands, no
+    all-reduce."""
+    nd = 8
+    s = System(meshgen.hex_box_problem(12, 6, 6, jitter=0.25, seed=3),
+               device="cpu")
+    op, pos = halo_gather.build(s, make_mesh(nd, device="cpu"))
+    up = op.layout().scatter(torch.ones(s.ndof, dtype=torch.float64))
+    cols = commcount.collectives(halo_gather.matvec, op, up.parts)
+    band_bytes = op.B * op.pdim * 8
+    assert cols == [("neighbor_exchange", (op.B, op.pdim), band_bytes)] * 4
+    assert 4 * band_bytes < s.ndof * 8
+
+
+def test_sharded_vector_dot_is_one_scalar_all_reduce():
+    """The DOF-sharded CG's only traffic beside its K.u: one scalar
+    all-reduce per dot product or norm; the updates are local."""
+    mesh = make_mesh(3, device="cpu")
+    rng = np.random.default_rng(0)
+    a, b = (torch.as_tensor(rng.normal(size=10)) for _ in range(2))
+    lay = mesh_mod.SlabLayout(mesh, lambda v: list(v.split([4, 3, 3])),
+                              torch.cat)
+    va, vb = lay.scatter(a), lay.scatter(b)
+    out = {}
+    cols = commcount.collectives(lambda: out.update(
+        dot=va.dot(vb), norm=va.norm(), axpy=va + 2.0 * vb - va * vb / 3.0))
+    assert cols == [("all_reduce_sum", (), 8)] * 2
+    assert abs(float(out["dot"]) - float(a @ b)) < 1e-14
+    assert abs(float(out["norm"]) - float(a.norm())) < 1e-14
+    assert torch.allclose(lay.gather(out["axpy"]), a + 2.0 * b - a * b / 3.0,
+                          rtol=1e-15, atol=0)
+    assert names(commcount.collectives(lay.gather, va)) == ["gather"]
+    assert commcount.collectives(lay.scatter, a) == [("scatter", (10,), 80)]
 
 
 @pytest.mark.parametrize("mode", ["fused", "ke"])

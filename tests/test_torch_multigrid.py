@@ -1,5 +1,8 @@
 """fem_tpu_torch's stencil operator forms (2D, per-cell fields), detection
-and geometric multigrid hierarchy against fem_tpu in float64."""
+and geometric multigrid hierarchy against fem_tpu in float64, and the cycle
+with its fine level on the slab-sharded stencil."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +12,12 @@ import torch
 from fem_tpu.io import meshgen as j_meshgen
 from fem_tpu.ops import structured as j_structured
 from fem_tpu.ops.stiffness import lame as j_lame
+from fem_tpu.parallel import make_mesh as j_make_mesh
 from fem_tpu.solver import multigrid as j_mg
 from fem_tpu_torch.ops import structured
 from fem_tpu_torch.ops.stiffness import lame
+from fem_tpu_torch.parallel import commcount
+from fem_tpu_torch.parallel.mesh import make_mesh
 from fem_tpu_torch.solver import multigrid
 
 torch.set_num_threads(1)
@@ -157,6 +163,43 @@ def test_mg_wcycle_matches_fem_tpu_and_converges_no_slower():
         assert x.resnorm <= 1e-9 * nb * 1.01
     assert res[1].iters <= res[0].iters
     assert rel(res[1].x, res[0].x.numpy()) <= 1e-8
+
+
+@pytest.mark.parametrize("shape,smoother,gamma", [
+    ((9, 9, 5), "chebyshev", 1),
+    ((9, 17), "jacobi", 1),
+    ((17, 9, 9), "chebyshev", 2),
+], ids=["3d_chebyshev", "2d_jacobi", "3d_wcycle"])
+def test_sharded_fine_level_cycle(shape, smoother, gamma):
+    """The cycle with its fine level's K.u on the slab-sharded stencil
+    (4 shards; 8 and 16 leading cells): the single-device cycle's vector
+    and fem_tpu's v_cycle_host_sharded on the same seeded residual (1e-10;
+    fem_tpu has no sharded W-cycle, so gamma 2 is held to the port's own).
+    The fine level's products are the only collectives, one all-reduce of
+    the whole grid each; the coarser levels issue none."""
+    h, jh = hierarchies(shape, smoother)
+    if gamma == 2:
+        h = dataclasses.replace(h, gamma=2)
+        assert len(h.levels) >= 3
+    op = h.levels[0].op
+    sl = structured.shard_slabs(op, make_mesh(4, device="cpu"))
+    r = np.random.default_rng(7).standard_normal(op.ndof)
+    r[h.levels[0].maskf.numpy() > 0] = 0.0
+    tr = torch.as_tensor(r)
+    out = {}
+    cols = commcount.collectives(lambda: out.update(z=multigrid.v_cycle(
+        h, tr, lambda v: structured.matvec_sharded(sl, v))))
+    assert rel(out["z"], multigrid.v_cycle(h, tr).numpy()) < 1e-10
+    if gamma == 1:
+        assert rel(out["z"], j_mg.v_cycle_host_sharded(
+            jh, jnp.asarray(r), j_make_mesh(4))) < 1e-10
+    # pre-smoothing, the residual and post-smoothing: Chebyshev(3) applies
+    # K three times a half-cycle, V(2, 2) Jacobi twice
+    n_fine = 7 if smoother == "chebyshev" else 5
+    ar = [c for c in cols if c[0] == "all_reduce_sum"]
+    assert len(ar) == n_fine and {c[2] for c in ar} == {op.ndof * 8}
+    assert multigrid.preconditioner(h, lambda v: structured.matvec_sharded(
+        sl, v))(tr).equal(out["z"])
 
 
 def test_transfers_match_fem_tpu():

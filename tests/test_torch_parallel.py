@@ -2,7 +2,10 @@
 the stepper's sharded rows, `--devices`) on the CPU in float64: the sharded
 operator against the single-device one and against fem_tpu's ShardedOperator
 on its 8 virtual CPU devices, and sharded runs against single-device runs of
-the same deck."""
+the same deck. The DOF-sharded tiers have their own files
+(tests/test_torch_halo.py, test_torch_halo_block.py,
+test_torch_halo_gather.py); here every sharded row is run through the path
+table."""
 
 import dataclasses
 import os
@@ -150,10 +153,11 @@ def test_stepper_devices_unstructured_matches_single(grid, shards):
 
 
 def test_stepper_devices_amg_permuted_element_sharded():
-    """A scrambled cube with AMG takes the element-sharded AMG row (fem_tpu
-    falls back to it from its halo-gather tier; the port takes it on every
-    general AMG deck): fine-level matvecs all-reduce over the mesh, coarse
-    levels replicated; same iteration counts, same answer."""
+    """A deck with no slab locality (fem_tpu's tiny scrambled cube: over 8
+    slabs an element reaches farther than a slab, so the halo-gather layout
+    refuses) falls back to the element-sharded AMG tier: fine-level matvecs
+    all-reduce over the mesh, coarse levels on shard 0; same iteration
+    counts, same answer."""
     p = meshgen.permute_nodes(
         meshgen.hex_box_problem(5, 5, 5, jitter=0.25, t=1.0, dt=0.5), seed=3)
     ref = stepper.run(p, Config(device="cpu", solver="cg", precond="amg"))
@@ -165,7 +169,9 @@ def test_stepper_devices_amg_permuted_element_sharded():
     assert ref.path == "unstructured_amg_or_lattice_gmg_cg"
     assert shd.path == "sharded_amg_cg"
     assert any("sharded operator" in m for m in msgs)
-    assert any("halo-gather tier is not ported" in m for m in msgs)
+    assert any("(halo-gather layout unavailable: element reach B=53 "
+               "exceeds slab size S=27" in m for m in msgs)
+    assert any("element-sharded tier" in m for m in msgs)
     assert shd.krylov_iters == ref.krylov_iters
     same_run(shd, ref)
     assert sum(c[0] == "all_reduce_sum" for c in cols) > 0
@@ -263,12 +269,22 @@ def test_cli_devices_flag(tmp_path):
      "sharded_halo_block_stencil"),
 ], ids=["structured_box", "lex_lattice_amg"])
 def test_dof_sharded_tiers_raise_from_the_path_table(problem, tier):
-    """The DOF-sharded tiers that are not ported yet raise through
-    stepper.PATHS, naming the tier and ROADMAP A.9."""
-    assert {name: item for name, _, item in stepper.PATHS}[tier] == "A.9"
-    with pytest.raises(NotImplementedError, match=f"{tier}.*A.9"):
-        stepper.run(problem(), Config(device="cpu", solver="cg",
-                                      precond="amg", n_devices=2))
+    """The DOF-sharded tiers, which used to raise from stepper.PATHS, run
+    from it: the same decks, 2 shards, the row's name, the single-device
+    run's iterations and u (1e-9), and their own traffic (the slab row
+    all-reduces whole grids, the halo row only scalars)."""
+    assert tier in [name for name, _ in stepper.PATHS]
+    cfg = dict(device="cpu", solver="cg", precond="amg")
+    out = {}
+    cols = commcount.collectives(lambda: out.update(r=stepper.run(
+        problem(), Config(n_devices=2, **cfg))))
+    shd, ref = out["r"], stepper.run(problem(), Config(**cfg))
+    assert shd.path == tier and ref.path != tier
+    assert shd.krylov_iters == ref.krylov_iters
+    same_run(shd, ref)
+    sizes = {c[2] for c in cols if c[0] == "all_reduce_sum"}
+    assert sizes == ({ref.aggregate_u.size * 8}
+                     if tier == "sharded_slab_stencil" else {8})
 
 
 def test_make_mesh_too_few_devices(monkeypatch):

@@ -136,10 +136,10 @@ def test_path_table_rows():
     assert stepper.choose_path(stepper.Features(
         **{**f, "cohesive": True})) == "cohesive_newton"
     # creep is not a row (ROADMAP A.8 adds it to every linear row's RHS)
-    assert "creep" not in [name for name, _, _ in stepper.PATHS]
-    # sharded runs: the element-sharded rows run; the DOF-sharded tiers of
-    # a structured box and of a lex-lattice AMG deck still raise; direct
-    # solves and cohesive decks keep their rows
+    assert "creep" not in [name for name, _ in stepper.PATHS]
+    # sharded runs: the element-sharded rows and the DOF-sharded tiers of a
+    # structured box and of a lex-lattice AMG deck; direct solves and
+    # cohesive decks keep their rows
     s = {**f, "sharded": True}
     assert stepper.choose_path(stepper.Features(**s)) == "sharded_jacobi_cg"
     assert stepper.choose_path(stepper.Features(
@@ -148,11 +148,14 @@ def test_path_table_rows():
         **{**s, "solver": "direct"})) == "direct"
     assert stepper.choose_path(stepper.Features(
         **{**s, "cohesive": True})) == "cohesive_newton"
-    with pytest.raises(NotImplementedError, match="slab_stencil.*A.9"):
-        stepper.choose_path(stepper.Features(**{**s, "structured": True}))
-    with pytest.raises(NotImplementedError, match="halo_block_stencil.*A.9"):
-        stepper.choose_path(stepper.Features(
-            **{**s, "precond": "amg", "lattice": lambda: True}))
+    assert stepper.choose_path(stepper.Features(
+        **{**s, "structured": True})) == "sharded_slab_stencil"
+    assert stepper.choose_path(stepper.Features(
+        **{**s, "precond": "amg", "lattice": lambda: True})) == (
+            "sharded_halo_block_stencil")
+    # every row has its set-up (the explicit one solves nothing)
+    assert {name for name, _ in stepper.PATHS} == set(stepper._SETUP) | {
+        "explicit"}
 
 
 def test_unported_rows_raise_from_run():
@@ -180,6 +183,15 @@ def test_unported_rows_raise_from_run():
     assert r.krylov_iters and r.krylov_iters[0] > 0
     u_dir = stepper.run(box, Config(device="cpu", solver="direct")).aggregate_u
     close(r.aggregate_u, u_dir, rtol=1e-7)
+    # no row raises any more: with n_devices the same deck takes the halo
+    # block stencil, and its unjittered form the slab stencil
+    r = stepper.run(box, Config(device="cpu", solver="cg", amg_threshold=10,
+                                n_devices=2))
+    assert r.path == "sharded_halo_block_stencil"
+    close(r.aggregate_u, u_dir, rtol=1e-7)
+    r = stepper.run(meshgen.hex_box_problem(2, 2, 2),
+                    Config(device="cpu", solver="cg", n_devices=2))
+    assert r.path == "sharded_slab_stencil"
 
 
 def test_explicit_deck_writes_zeros():

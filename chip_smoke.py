@@ -85,12 +85,20 @@ Phases, each of which exits non-zero when it fails:
      checkpoint's size and write time;
  16. one elastic step of the 80^3 box with timing and a torch.profiler
      trace, which must hold CUDA kernel events of K1 and K2;
- 17. gradients through K1's autograd Function: d<W, k_e>/d(lam, mu) at
-     131,072 elements against the plain form's autograd (1e-12), the 6^3
-     box's compliance gradient in per-element E against the CPU (1e-10) and
-     central differences (1e-5), and a coordinate gradient that raises;
+ 17. gradients through the kernels' autograd Functions, each backward a
+     kernel: d<W, k_e>/d(lam, mu) at 131,072 elements against the plain
+     form's autograd (1e-12); d<W, k_e>/dx there through K1's coordinate
+     backward, float64 and float32, against the plain form's autograd and
+     the plain contractions (1e-12 / 1e-5), the same bits twice, timed;
      through K2's: d<W, K u>/du on the 81^3 grid against the plain form's
-     autograd (1e-12); K3 on an input that requires grad raises;
+     autograd (1e-12); the 6^3 box's compliance gradient in per-element E
+     and in the node coordinates against the CPU (1e-10) and central
+     differences (1e-5); K3's backward in x (K3 on the transposed table)
+     and in data (csr_data_grad) on phase 9's level-0 P and R against the
+     plain form's autograd (1e-12 / 1e-5), the same bits twice, timed
+     beside cuSPARSE's SpMV and SDDMM; the gradient of <w, v_cycle(r)> in
+     r and in P's data through phase 9's SA-AMG hierarchy against the same
+     cycle on K3's plain form (1e-10) and against v_cycle(w);
  18. the native parser: the reference decks parse equal, field for field,
      to the Python parser's, and load(backend="native") equals
      load(backend="python") block by block; load(backend="auto") calls the
@@ -439,6 +447,7 @@ def phase14_creep(torch, dev, n_big, ck_dir):
     msgs = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ck.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -470,7 +479,8 @@ def phase14_creep(torch, dev, n_big, ck_dir):
           f"elastic {tip_el:.6e} (ratio {tip / tip_el:.6f}, 12^3: "
           f"{ratio12:.6f}), stepper.run wall {wall:.2f} s with checkpoints, "
           f"peak device memory {peak / 2**30:.3f} GiB "
-          f"(torch.cuda.max_memory_allocated), launches {launches}",
+          f"(torch.cuda.max_memory_allocated; {held / 2**30:.3f} GiB of it "
+          f"held by earlier phases), launches {launches}",
           flush=True)
     print("creep: phase timers (synchronized):\n" + tm.report(), flush=True)
     print("creep: per step: " + ", ".join(
@@ -569,16 +579,22 @@ def phase16_trace(torch, n_big):
         check(count > 0, f"the trace holds no CUDA kernel event of {name}")
 
 
-def phase17_gradients(torch, dev, k1_inputs):
-    """Phase 17: gradients through K1's and K2's autograd Functions, and
-    K3's refusal of a gradient. Returns the launches of the K1 and the K2
-    gradient, each counted from 0 before its forward."""
+def phase17_gradients(torch, dev, k1_inputs, flush, amg55, mask55,
+                      csr_library):
+    """Phase 17: gradients through the autograd Functions of K1, K2 and K3,
+    whose backward launches kernels only. amg55 is phase 9's kept
+    FineAndHierarchy, mask55 its box's BC mask. Returns (the launches of
+    each gradient run, each counted from 0 before its forward, keyed by
+    run; the float64 measurements of the two backward kernels; those of
+    K3's backward in x)."""
     import numpy as np
 
     from fem_tpu_torch.io import meshgen
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import elements, stiffness, structured
+    from fem_tpu_torch.solver import amg, cg
 
+    runs, summary = {}, {}
     x, lam, mu = k1_inputs(131072, torch.float64)
     W = torch.randn((24, 24, 131072), dtype=torch.float64, device=dev,
                     generator=torch.Generator(dev).manual_seed(0))
@@ -603,7 +619,59 @@ def phase17_gradients(torch, dev, k1_inputs):
           f"{t_k1:.4f} ms, plain {t_plain:.4f} ms", flush=True)
     check(launches == 3, f"K1 forward + backward launched {launches}")
     check(max(errs) <= 1e-12, f"K1 backward: {errs}")
-    del W, got, ref
+    del W, got, ref, x, lam, mu
+
+    # K1's backward in the coordinates, d<W, k_e>/dx, at phase 3's 131,072
+    # elements: against the plain form's autograd and the plain contractions
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = str(dtype).split(".")[-1]
+        x, lam, mu = k1_inputs(131072, dtype)
+        W = torch.randn((24, 24, 131072), dtype=dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2))
+        xg = x.clone().requires_grad_()
+
+        def autograd_x(fn):
+            return torch.autograd.grad((W * fn(xg, lam, mu)).sum(), xg)[0]
+
+        ck.reset_launches()
+        got = autograd_x(ck.hex8_stiffness)
+        torch.cuda.synchronize()
+        n_k1 = dict(ck.launches)
+        again = ck._hex8_coord_grad_launch(x, lam, mu, W)
+        ref = autograd_x(ck.hex8_stiffness_plain)
+        plain = ck.hex8_stiffness_coord_grad_plain(x, lam, mu, W)
+        errs = rel_max(got, ref), rel_max(got, plain)
+        print(f"gradients: d<W, k_e>/dx {name} at 131,072 hex8 through K1's "
+              f"autograd Function (launches: K1 {n_k1['hex8_stiffness']}, "
+              f"coordinate backward {n_k1['hex8_stiffness_coord_grad']}), "
+              f"max rel diff against the plain form's autograd {errs[0]:.3e},"
+              f" against the plain contractions {errs[1]:.3e} (tol "
+              f"{tol:.0e})", flush=True)
+        check(n_k1["hex8_stiffness"] == 1
+              and n_k1["hex8_stiffness_coord_grad"] == 1,
+              f"K1 coordinate gradient launched {n_k1}")
+        check(torch.equal(got, again), f"K1 coordinate backward {name}: two "
+              f"calls gave different bits")
+        check(max(errs) <= tol, f"K1 coordinate backward {name}: {errs}")
+        # least bytes: G (576 values), the coordinates, lam and mu read
+        # once, the 24 gradients written; least operations: one FMA per G
+        # entry and Gauss point, as the forward's
+        isz = x.element_size()
+        m = measure(torch, "K1 coordinate backward ne=131072", name,
+                    lambda: ck._hex8_coord_grad_launch(x, lam, mu, W),
+                    lambda: ck.hex8_stiffness_coord_grad_plain(x, lam, mu,
+                                                               W),
+                    None, (576 + 24 + 2 + 24) * 131072 * isz,
+                    2 * 8 * 576 * 131072, flush, reps=20, plain_reps=5)
+        t_auto = time_ms(torch, lambda: autograd_x(ck.hex8_stiffness_plain),
+                         5)
+        print(f"  K1 coordinate backward {name}: the plain form's autograd "
+              f"(its forward and backward) {t_auto:.4f} ms", flush=True)
+        if dtype == torch.float64:
+            summary["hex8_stiffness_coord_grad"] = dict(
+                m, max_abs_err=float((got - ref).abs().max()),
+                plain_autograd_ms=t_auto)
+        del x, lam, mu, W, xg, got, again, ref, plain
 
     # K2: d<W, K u>/du = K W on the 80^3 box's 81^3 node grid
     op = structured.build((1.0 / 80,) * 3, (81, 81, 81),
@@ -628,27 +696,19 @@ def phase17_gradients(torch, dev, k1_inputs):
           f"{err_k2:.3e} (tol 1e-12)", flush=True)
     check(k2_launches == 2, f"K2 forward + backward launched {k2_launches}")
     check(err_k2 <= 1e-12, f"K2 backward: {err_k2}")
+    runs["gradients"] = {"hex8_stiffness": launches,
+                         "stencil_matvec": k2_launches}
     del op, u, W, g_k2, g_plain
-    # K3 has no backward: a gradient through it raises on cuda
-    x3 = torch.ones(2, dtype=torch.float64, device=dev, requires_grad=True)
-    try:
-        ck.csr_matvec(torch.tensor([0, 1, 2], device=dev),
-                      torch.tensor([0, 1], dtype=torch.int32, device=dev),
-                      torch.ones(2, dtype=torch.float64, device=dev), x3, 1)
-    except NotImplementedError as e:
-        print(f"gradients: K3 with an input that requires grad raises: {e}",
-              flush=True)
-    else:
-        fail("K3 on an input that requires grad did not raise")
 
-    # compliance of the 6^3 box against per-element E
+    # compliance of the 6^3 box against per-element E and the node
+    # coordinates
     box = meshgen.hex_box_problem(6, 6, 6, lx=1.0, ly=1.0, lz=1.0)
     et = elements.get("hex")
 
     def compliance_fn(device):
         conn = torch.as_tensor(box.blocks["hex"].conn, dtype=torch.int64,
                                device=device)
-        ecoords = torch.as_tensor(box.coords, device=device)[conn]
+        coords0 = torch.as_tensor(box.coords, device=device)
         edofs = stiffness.element_dofs(et, conn)
         n = box.ndof
         F = torch.zeros(n, dtype=torch.float64, device=device).index_add_(
@@ -659,9 +719,10 @@ def phase17_gradients(torch, dev, k1_inputs):
         mask[torch.as_tensor(box.bc_dofs, dtype=torch.int64,
                              device=device)] = True
 
-        def compliance(E_els):
+        def compliance(E_els, coords=coords0):
             lam_e, mu_e = stiffness.lame(E_els, torch.full_like(E_els, 0.3))
-            ke = stiffness.element_stiffness_lame(et, ecoords, lam_e, mu_e)
+            ke = stiffness.element_stiffness_lame(et, coords[conn], lam_e,
+                                                  mu_e)
             K = torch.zeros((n, n), dtype=torch.float64,
                             device=device).index_put(
                 (edofs[:, :, None], edofs[:, None, :]), ke, accumulate=True)
@@ -669,45 +730,229 @@ def phase17_gradients(torch, dev, k1_inputs):
             K = K + torch.diag(mask.to(K.dtype))
             return F @ torch.linalg.solve(K, torch.where(mask, 0.0, F))
 
-        return compliance, ecoords
+        return compliance, coords0
 
     ne = box.blocks["hex"].ne
-    g = {}
-    for device in ("cuda", "cpu"):
-        compliance, ecoords = compliance_fn(device)
+    g, gx = {}, {}
+    for device in ("cpu", dev):
+        compliance, coords0 = compliance_fn(device)
         E0 = torch.full((ne,), 200e9, dtype=torch.float64, device=device,
                         requires_grad=True)
         (g[device],) = torch.autograd.grad(compliance(E0), E0)
-    d_cpu = rel_max(g["cuda"], g["cpu"])
-    compliance, ecoords = compliance_fn("cuda")
-    fd_errs = []
+        xc = coords0.clone().requires_grad_()
+        ck.reset_launches()
+        (gx[device],) = torch.autograd.grad(compliance(E0.detach(), xc), xc)
+        torch.cuda.synchronize()
+    runs["grad_coords_6"] = dict(ck.launches)
+    d_cpu = rel_max(g[dev], g["cpu"])
+    d_cpu_x = rel_max(gx[dev], gx["cpu"])
+    rng = np.random.default_rng(0)
+    fd_errs, fd_x_errs = [], []
     with torch.no_grad():
         E0 = torch.full((ne,), 200e9, dtype=torch.float64, device=dev)
-        for e in np.random.default_rng(0).choice(ne, 3, replace=False):
+        for e in rng.choice(ne, 3, replace=False):
             dE = torch.zeros_like(E0)
             dE[e] = 200e9 * 1e-4
             fd = (compliance(E0 + dE) - compliance(E0 - dE)) / (2 * dE[e])
-            fd_errs.append(abs(float(g["cuda"][e]) / float(fd) - 1.0))
+            fd_errs.append(abs(float(g[dev][e]) / float(fd) - 1.0))
+        # three coordinates of nodes that no BC pins, among those whose
+        # gradient is at least a tenth of the largest; h = 1e-5 (the cells
+        # are 1/6 wide)
+        free = np.setdiff1d(np.arange(box.coords.shape[0]),
+                            np.asarray(box.bc_dofs) // 3)
+        gf = gx[dev][torch.as_tensor(free, device=dev)].abs().cpu().numpy()
+        cand = np.argwhere(gf >= 0.1 * gf.max())
+        picked = []
+        for i, d in cand[rng.choice(len(cand), 3, replace=False)]:
+            dx = torch.zeros_like(coords0)
+            dx[free[i], d] = 1e-5
+            fd = (compliance(E0, coords0 + dx)
+                  - compliance(E0, coords0 - dx)) / 2e-5
+            fd_x_errs.append(abs(float(gx[dev][free[i], d]) / float(fd)
+                                 - 1.0))
+            picked.append((int(free[i]), int(d)))
     print(f"gradients: d compliance / dE of the 6^3 box ({ne} elements) on "
           f"cuda: rel diff against the CPU plain autograd {d_cpu:.3e} (tol "
           f"1e-10), against central differences at 3 elements "
           f"{max(fd_errs):.3e} (tol 1e-5)", flush=True)
+    print(f"gradients: d compliance / d coordinates of the 6^3 box on cuda "
+          f"(launches {runs['grad_coords_6']}): rel diff against the CPU "
+          f"plain autograd {d_cpu_x:.3e} (tol 1e-10), against central "
+          f"differences at (node, axis) {picked} "
+          f"{['%.3e' % e for e in fd_x_errs]} (tol 1e-5)", flush=True)
     check(d_cpu <= 1e-10, f"compliance gradient cuda vs cpu: {d_cpu}")
     check(max(fd_errs) <= 1e-5, f"compliance gradient vs FD: {fd_errs}")
-    # a gradient with respect to the coordinates raises on cuda
-    xg = ecoords.clone().requires_grad_()
-    lam_e, mu_e = (t.detach() for t in stiffness.lame(
-        torch.full((ne,), 200e9, dtype=torch.float64, device=dev),
-        torch.full((ne,), 0.3, dtype=torch.float64, device=dev)))
+    check(runs["grad_coords_6"]["hex8_stiffness_coord_grad"] == 1,
+          "the coordinate gradient launched no K1 coordinate backward")
+    check(d_cpu_x <= 1e-10, f"coordinate gradient cuda vs cpu: {d_cpu_x}")
+    check(max(fd_x_errs) <= 1e-5, f"coordinate gradient vs FD: {fd_x_errs}")
+
+    # K3's backward in x and data on the 55^3 level-0 P and R, against the
+    # plain form's autograd; P and R are each other's transposed table
+    lv0 = amg55.hier.levels[0]
+    P32 = dataclasses.replace(lv0.P, data=lv0.P.data.float())
+    R32 = dataclasses.replace(lv0.R, data=lv0.R.data.float())
+    amg.link_transposes(P32, R32)
+    x_bar = {}
+    for dtype, tol, tables in ((torch.float64, 1e-12, (lv0.P, lv0.R)),
+                               (torch.float32, 1e-5, (P32, R32))):
+        dname = str(dtype).split(".")[-1]
+        for label, t in zip(("P", "R"), tables):
+            n, ncols = t.shape
+            nnz, isz = t.data.shape[0], t.data.element_size()
+            gen = torch.Generator(dev).manual_seed(3)
+            x = torch.randn(ncols, dtype=dtype, device=dev, generator=gen,
+                            requires_grad=True)
+            gy = torch.randn(n, dtype=dtype, device=dev, generator=gen)
+            # a view of the table's data that requires grad
+            data = t.data.detach().requires_grad_()
+
+            def k3_grads():
+                out = ck.csr_matvec(t.indptr, t.indices, data, x, t.lanes,
+                                    t.transposed)
+                return torch.autograd.grad(out, [x, data], gy)
+
+            ck.reset_launches()
+            got = k3_grads()
+            torch.cuda.synchronize()
+            n_k3 = dict(ck.launches)
+            again = k3_grads()
+            ref = torch.autograd.grad(ck.csr_matvec_plain(
+                t.indptr, t.indices, data, x), [x, data], gy)
+            errs = [rel_max(a, b) for a, b in zip(got, ref)]
+            print(f"gradients: K3's backward {dname} on the 55^3 level-0 "
+                  f"{label} ({n} x {ncols}, {nnz} nonzeros; launches "
+                  f"{n_k3['csr_matvec']} K3, {n_k3['csr_data_grad']} "
+                  f"csr_data_grad): max rel diff against the plain form's "
+                  f"autograd in x {errs[0]:.3e}, in data {errs[1]:.3e} (tol "
+                  f"{tol:.0e})", flush=True)
+            check(n_k3["csr_matvec"] == 2 and n_k3["csr_data_grad"] == 1,
+                  f"K3 backward on {label} launched {n_k3}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K3 backward {dname} {label}: two calls gave different "
+                  f"bits")
+            check(max(errs) <= tol, f"K3 backward {dname} {label}: {errs}")
+            # x's backward: K3 on the transposed table (R for P, P for R),
+            # beside cuSPARSE's SpMV on the same transposed CSR; least
+            # bytes as K3's
+            tt = t.transposed()
+            lib_t = csr_library(tt.indptr, tt.indices, tt.data, tt.shape)
+            m_x = measure(
+                torch, f"K3 backward in x ({label}^T, {tt.shape[0]} rows)",
+                dname,
+                lambda: ck._k3_launch(tt.indptr, tt.indices, tt.data, gy,
+                                      tt.lanes),
+                lambda: ck.csr_matvec_plain(tt.indptr, tt.indices, tt.data,
+                                            gy),
+                lambda: lib_t(gy), nnz * (isz + 4) + (n + ncols) * isz,
+                2 * nnz, flush)
+            # data's backward, beside cuSPARSE's SDDMM (sampled_addmm) on
+            # the same pattern where it runs in this dtype; least bytes:
+            # each nonzero's column read and its product written, x and gy
+            # read
+            xd = x.detach()
+            lib_d = sddmm_library(torch, t, xd, gy, got[1])
+            m_d = measure(
+                torch, f"K3 backward in data ({label})", dname,
+                lambda: ck._csr_data_grad_launch(t.indptr, t.indices, xd, gy,
+                                                 t.lanes),
+                lambda: ck.csr_data_grad_plain(t.indptr, t.indices, xd, gy),
+                lib_d, nnz * (4 + isz) + (n + ncols) * isz, nnz, flush,
+                reps=20)
+            if dtype == torch.float64:
+                x_bar[label] = dict(m_x, max_abs_err=float(
+                    (got[0] - ref[0]).abs().max()))
+                if label == "P":
+                    summary["csr_data_grad"] = dict(m_d, max_abs_err=float(
+                        (got[1] - ref[1]).abs().max()))
+            del x, gy, data, got, again, ref
+    del P32, R32
+
+    # the gradient of <w, v_cycle(r)> in r and in level 0's P data, through
+    # the 55^3 SA-AMG hierarchy with the stepper's masked fine operator,
+    # against the same cycle with every table applied by K3's plain form
+    h = amg55.hier
+    P = dataclasses.replace(lv0.P, data=lv0.P.data.detach().requires_grad_())
+    amg.link_transposes(P, lv0.R)
+    h = dataclasses.replace(h, levels=(dataclasses.replace(lv0, P=P),)
+                            + h.levels[1:])
+    mv = cg.masked_operator(amg55.fine, mask55)
+    gen = torch.Generator(dev).manual_seed(4)
+    r = torch.randn(mask55.shape[0], dtype=torch.float64, device=dev,
+                    generator=gen, requires_grad=True)
+    w = torch.randn(mask55.shape[0], dtype=torch.float64, device=dev,
+                    generator=gen)
+
+    def cycle_grads():
+        return torch.autograd.grad((w * amg.v_cycle(h, mv, r)).sum(),
+                                   [r, P.data])
+
+    ck.reset_launches()
+    got, wall = sync_wall(torch, cycle_grads)
+    runs["grad_vcycle_55"] = dict(ck.launches)
+    free = ~mask55
+
+    def by_part(a, b):
+        """rel_max over the free DOFs and over the constrained ones: the
+        masked operator's identity rows make the constrained entries of the
+        r gradient O(1) and the free ones, the only ones the transfers
+        reach, O(1 / (E h)); one maximum over all would not see them."""
+        return [rel_max(a[free], b[free]), rel_max(a[mask55], b[mask55])]
+
+    with torch.no_grad():
+        sym = by_part(got[0], amg.v_cycle(h, mv, w))
+    wall_fwd = sync_wall(torch, lambda: amg.v_cycle(h, mv, r.detach()))[1]
+    k3 = ck.csr_matvec
+    ck.csr_matvec = (lambda indptr, indices, data, x, lanes, transpose:
+                     ck.csr_matvec_plain(indptr, indices, data, x))
     try:
-        torch.autograd.grad(stiffness.element_stiffness_lame(
-            et, xg, lam_e, mu_e).sum(), xg)
-    except NotImplementedError as e:
-        print(f"gradients: coordinate gradient on cuda raises: {e}",
-              flush=True)
-    else:
-        fail("a coordinate gradient through K1 on cuda did not raise")
-    return {"hex8_stiffness": launches, "stencil_matvec": k2_launches}
+        ref, wall_plain = sync_wall(torch, cycle_grads)
+    finally:
+        ck.csr_matvec = k3
+    errs = by_part(got[0], ref[0]) + [rel_max(got[1], ref[1])]
+    print(f"gradients: d<w, v_cycle(r)>/d(r, P data) through the 55^3 SA-AMG "
+          f"hierarchy ({len(h.levels)} levels) on cuda, launches "
+          f"{runs['grad_vcycle_55']}: max rel diff against the cycle with "
+          f"K3's plain form in r over the free DOFs {errs[0]:.3e} (max "
+          f"|grad| there {float(ref[0][free].abs().max()):.3e}), over the "
+          f"constrained ones {errs[1]:.3e} (max |grad| "
+          f"{float(ref[0][mask55].abs().max()):.3e}), in P's data "
+          f"{errs[2]:.3e} (tol 1e-10); against v_cycle(w) (the cycle is "
+          f"symmetric) free {sym[0]:.3e}, constrained {sym[1]:.3e} (tol "
+          f"1e-8); wall (synchronized) {wall * 1e3:.1f} ms, forward alone "
+          f"{wall_fwd * 1e3:.1f} ms, plain K3 {wall_plain * 1e3:.1f} ms",
+          flush=True)
+    check(max(errs) <= 1e-10, f"V-cycle gradient against plain K3: {errs}")
+    check(max(sym) <= 1e-8, f"V-cycle gradient against v_cycle(w): {sym}")
+    for name in ("csr_matvec", "csr_data_grad"):
+        check(runs["grad_vcycle_55"][name] > 0,
+              f"the V-cycle gradient launched no {name}")
+    return runs, summary, x_bar
+
+
+def sddmm_library(torch, t, x, gy, expect):
+    """The yardstick of K3's backward in data: cuSPARSE's SDDMM through
+    torch.sparse.sampled_addmm on t's pattern (int32 indices), checked
+    against `expect`; None where it does not run in this dtype. The port
+    never calls it."""
+    A = torch.sparse_csr_tensor(t.indptr.to(torch.int32), t.indices,
+                                torch.zeros_like(t.data), size=t.shape,
+                                check_invariants=False)
+    g2, x2 = gy[:, None], x[None, :]
+
+    def sddmm():
+        return torch.sparse.sampled_addmm(A, g2, x2, beta=0.0)
+
+    try:
+        got = sddmm().values()
+    except RuntimeError as e:
+        print(f"  sampled_addmm does not run in {t.data.dtype}: "
+              f"{str(e).splitlines()[0]}", flush=True)
+        return None
+    err = rel_max(got, expect)
+    tol = 1e-12 if t.data.dtype == torch.float64 else 1e-5
+    check(err <= tol, f"sampled_addmm against K3's backward in data: {err}")
+    return sddmm
 
 
 def recorded_steps(stepper, row, steps):
@@ -1931,9 +2176,13 @@ def main():
             print(f"  stepper: {m.strip()}")
     check(len(built) == 1 and built[0].kind == "amg",
           f"the permuted 55^3 run built {[b.kind for b in built]}")
-    # K3 on that run's own P, R and mid-level tables
-    k3_real = k3_hierarchy(built.pop().hier, "55^3")
+    # K3 on that run's own P, R and mid-level tables; the hierarchy and its
+    # fine operator are kept for phase 17's gradients
+    amg55 = built.pop()
+    k3_real = k3_hierarchy(amg55.hier, "55^3")
     system = System(perm, torch.float64, device=dev)
+    mask55 = torch.zeros(system.ndof, dtype=torch.bool, device=dev)
+    mask55[system.bc_dofs] = True
     A_csr, t_asm = sync_wall(torch, lambda: amg.assemble_csr(system))
     print(f"permuted 55^3 box ({perm.ndof} DOFs): assemble_csr {t_asm:.2f} s "
           f"({A_csr.nnz} nonzeros)", flush=True)
@@ -2195,8 +2444,11 @@ def main():
     del res14, creep14
     # 16. phase timers and the torch.profiler trace
     phase16_trace(torch, 80)
-    # 17. gradients through K1's autograd Function
-    launches_grad = phase17_gradients(torch, dev, k1_inputs)
+    # 17. gradients through the kernels' autograd Functions
+    runs_grad, summary_grad, k3_x_bar = phase17_gradients(
+        torch, dev, k1_inputs, flush, amg55, mask55, csr_library)
+    summary.update(summary_grad)
+    del amg55, mask55
     # 18. the native parser
     phase18_native(cli_main)
     stamp("phase 19-21: CLI shards, warm start and W-cycle, refinement")
@@ -2242,7 +2494,7 @@ def main():
             "elastic_80": launches, "amg_55": launches_amg,
             "gmg_55": launches_gmg, "coh_strip_gmg": launches_strip,
             "coh_strip_amg": launches_coh, "creep_80": launches14,
-            "resume_80": launches15, "gradients": launches_grad,
+            "resume_80": launches15, **runs_grad,
             "warm_3step_80": launches_warm, "wcycle_solve_80": launches_w,
             "solve_f64_80": launches_f64, "solve_refined_80": launches_ir,
             "sharded_amg_plate": launches_shd_amg,
@@ -2252,9 +2504,13 @@ def main():
             "sharded_halo_block_55": launches_halo_block,
             "sharded_halo_gather_55": launches_halo_gather}
     # "launches" is the count of the kernel's main path: the 80^3 elastic
-    # run for K1 and K2, the 55^3 SA-AMG run for K3
+    # run for K1 and K2, the 55^3 SA-AMG run for K3, the 6^3 compliance
+    # gradient in the coordinates for K1's coordinate backward and the
+    # gradient through the 55^3 V-cycle for K3's backward in data
     main_path = {"hex8_stiffness": "elastic_80",
-                 "stencil_matvec": "elastic_80", "csr_matvec": "amg_55"}
+                 "hex8_stiffness_coord_grad": "grad_coords_6",
+                 "stencil_matvec": "elastic_80", "csr_matvec": "amg_55",
+                 "csr_data_grad": "grad_vcycle_55"}
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),
@@ -2262,12 +2518,19 @@ def main():
                            "fem_tpu/ops/pallas_kernels.py:302"),
         "csr_matvec": ("fem_tpu_torch/csrc/csr_matvec.cu",
                        "fem_tpu/ops/pallas_kernels.py:432"),
+        # the backward kernels of K1 and K3, whose Pallas kernels have none
+        "hex8_stiffness_coord_grad": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
+                                      "fem_tpu/ops/pallas_kernels.py:352"),
+        "csr_data_grad": ("fem_tpu_torch/csrc/csr_matvec.cu",
+                          "fem_tpu/ops/pallas_kernels.py:432"),
     }
     # once more, beside the numbers: a reader of the end of a long log
     # still learns the card and its power limit
     print(f"card: {smi}", flush=True)
     print("K2 on one slab of the 4-shard 80^3 run: " + json.dumps(k2_slab),
           flush=True)
+    print("K3's backward in x (K3 on the transposed 55^3 level-0 tables), "
+          "float64: " + json.dumps(k3_x_bar), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": runs[main_path[name]][name],

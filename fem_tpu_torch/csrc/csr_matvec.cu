@@ -24,8 +24,13 @@
 // of four of them in flight at a time. The LANES partial sums are folded
 // with __shfl_down_sync. The order of every sum is fixed by (row length,
 // LANES), with no atomics, so repeated runs give the same bits.
+//
+// K3's backward: in x it is K3 on the transposed table (formed once per
+// table, solver/amg.py:Csr.transposed), in data csr_data_grad_kernel below.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -64,6 +69,38 @@ csr_matvec_kernel(const long long* __restrict__ indptr,
   if (lane == 0 && row < n) out[row] = acc;
 }
 
+// The backward of K3 in data: out[k] = gy[i] * x[indices[k]] for
+// indptr[i] <= k < indptr[i + 1], one product per nonzero and no sum (the
+// backward in x is K3 itself on the transposed table). Rows are shared by
+// LANES threads as in K3, each lane taking k = lo + lane, lo + lane + LANES,
+// ..., so that a warp reads and writes neighbouring nonzeros, with the
+// column loads and then the gathers of four of them in flight at a time.
+// Same result as cuda_kernels.csr_data_grad_plain. What bounds it: device
+// memory, each nonzero's column read and its product written (4 + 8 bytes
+// in float64).
+template <typename T, int LANES>
+__global__ void __launch_bounds__(kThreads)
+csr_data_grad_kernel(const long long* __restrict__ indptr,
+                     const int* __restrict__ indices, const T* __restrict__ x,
+                     const T* __restrict__ gy, T* __restrict__ out,
+                     long long n) {
+  const long long row =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) / LANES;
+  if (row >= n) return;
+  const int lane = threadIdx.x % LANES;
+  const T g = __ldg(gy + row);
+  const long long hi = __ldg(indptr + row + 1);
+  for (long long k = __ldg(indptr + row) + lane; k < hi; k += 4 * LANES) {
+    int c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = k + j * LANES < hi ? __ldcs(indices + k + j * LANES) : -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c[j] >= 0) out[k + j * LANES] = g * __ldg(x + c[j]);
+  }
+}
+
 template <typename T, int LANES>
 int launch_lanes(const void* indptr, const void* indices, const void* data,
                  const void* x, void* out, long long n, cudaStream_t stream) {
@@ -75,17 +112,38 @@ int launch_lanes(const void* indptr, const void* indices, const void* data,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* indptr, const void* indices, const void* data,
-           const void* x, void* out, long long n, int lanes, void* stream) {
+template <typename T, int LANES>
+int launch_data_grad_lanes(const void* indptr, const void* indices,
+                           const void* x, const void* gy, void* out,
+                           long long n, cudaStream_t stream) {
+  const long long threads = n * LANES;
+  const unsigned grid = (unsigned)((threads + kThreads - 1) / kThreads);
+  csr_data_grad_kernel<T, LANES><<<grid, kThreads, 0, stream>>>(
+      (const long long*)indptr, (const int*)indices, (const T*)x,
+      (const T*)gy, (T*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// K3 (DATA_GRAD false: a, b = data, x) or its backward in data (true:
+// a, b = x, gy) with the LANES template argument picked from `lanes`
+template <typename T, bool DATA_GRAD>
+int launch(const void* indptr, const void* indices, const void* a,
+           const void* b, void* out, long long n, int lanes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  auto go = [&](auto lanes_c) {
+    constexpr int L = decltype(lanes_c)::value;
+    if constexpr (DATA_GRAD)
+      return launch_data_grad_lanes<T, L>(indptr, indices, a, b, out, n, s);
+    else
+      return launch_lanes<T, L>(indptr, indices, a, b, out, n, s);
+  };
   switch (lanes) {
-    case 1: return launch_lanes<T, 1>(indptr, indices, data, x, out, n, s);
-    case 2: return launch_lanes<T, 2>(indptr, indices, data, x, out, n, s);
-    case 4: return launch_lanes<T, 4>(indptr, indices, data, x, out, n, s);
-    case 8: return launch_lanes<T, 8>(indptr, indices, data, x, out, n, s);
-    case 16: return launch_lanes<T, 16>(indptr, indices, data, x, out, n, s);
-    case 32: return launch_lanes<T, 32>(indptr, indices, data, x, out, n, s);
+    case 1: return go(std::integral_constant<int, 1>());
+    case 2: return go(std::integral_constant<int, 2>());
+    case 4: return go(std::integral_constant<int, 4>());
+    case 8: return go(std::integral_constant<int, 8>());
+    case 16: return go(std::integral_constant<int, 16>());
+    case 32: return go(std::integral_constant<int, 32>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -95,11 +153,25 @@ int launch(const void* indptr, const void* indices, const void* data,
 extern "C" int csr_matvec_f64(const void* indptr, const void* indices,
                               const void* data, const void* x, void* out,
                               long long n, int lanes, void* stream) {
-  return launch<double>(indptr, indices, data, x, out, n, lanes, stream);
+  return launch<double, false>(indptr, indices, data, x, out, n, lanes,
+                               stream);
 }
 
 extern "C" int csr_matvec_f32(const void* indptr, const void* indices,
                               const void* data, const void* x, void* out,
                               long long n, int lanes, void* stream) {
-  return launch<float>(indptr, indices, data, x, out, n, lanes, stream);
+  return launch<float, false>(indptr, indices, data, x, out, n, lanes,
+                              stream);
+}
+
+extern "C" int csr_data_grad_f64(const void* indptr, const void* indices,
+                                 const void* x, const void* gy, void* out,
+                                 long long n, int lanes, void* stream) {
+  return launch<double, true>(indptr, indices, x, gy, out, n, lanes, stream);
+}
+
+extern "C" int csr_data_grad_f32(const void* indptr, const void* indices,
+                                 const void* x, const void* gy, void* out,
+                                 long long n, int lanes, void* stream) {
+  return launch<float, true>(indptr, indices, x, gy, out, n, lanes, stream);
 }

@@ -32,6 +32,11 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "hex8_stiffness_f64": [_P, _P, _P, _P, ctypes.c_longlong, _P],
     "hex8_stiffness_f32": [_P, _P, _P, _P, ctypes.c_longlong, _P],
+    # (coordinates, lam, mu, gradient of the output, out, ne)
+    "hex8_stiffness_coord_grad_f64": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                      _P],
+    "hex8_stiffness_coord_grad_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                      _P],
     # (interior coefficients on the host, class tables, u, out, nx, ny, nz)
     "stencil_matvec_f64": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P],
@@ -42,6 +47,11 @@ SIGNATURES = {
                        _P],
     "csr_matvec_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                        _P],
+    # (indptr, indices, x, gradient of the output, out, n rows, lanes)
+    "csr_data_grad_f64": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, _P],
+    "csr_data_grad_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, _P],
 }
 
 

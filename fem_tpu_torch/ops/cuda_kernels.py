@@ -8,15 +8,22 @@ checked against on the card), the wrapper, and a launch count.
   K2 stencil_matvec   csrc/stencil_matvec.cu  replaces stencil_matvec_pallas
   K3 csr_matvec       csrc/csr_matvec.cu      replaces ell_matvec_pallas
 
+and two backward kernels, of the gradients that jax.grad takes through
+fem_tpu's jnp forms of K1 and K3 (its Pallas kernels have no backward):
+
+  hex8_stiffness_coord_grad  csrc/hex8_stiffness.cu  K1 in the coordinates
+  csr_data_grad              csrc/csr_matvec.cu      K3 in data
+
 A wrapper given a CPU tensor returns the plain version. Given a CUDA tensor
 it launches the kernel (built at first use by `fem_tpu_torch.kernels_build`)
-on the current stream or raises; there is no fallback. On CUDA, K1 is
-differentiable in (lam, mu) and K2 in u, each through an autograd Function
-whose backward launches the kernel again; K1's coordinate gradient and any
-gradient through K3 raise there (ROADMAP A.8, open row). `launches[name]` is
-incremented once per kernel launch and nowhere else. The wrappers sit on
-launch-bound solver loops, so their checks format a message only when they
-fail.
+on the current stream or raises; there is no fallback. On CUDA every kernel
+is differentiable in each float input through an autograd Function whose
+backward launches kernels only: K1 in (lam, mu) by two more K1 launches and
+in the coordinates by hex8_stiffness_coord_grad, K2 in u by one more K2
+launch, K3 in x by K3 on the transposed table and in data by
+csr_data_grad. `launches[name]` is incremented once per kernel launch and
+nowhere else. The wrappers sit on launch-bound solver loops, so their checks
+format a message only when they fail.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ HEX_OFFSETS = (
 )
 QUAD_OFFSETS = ((0, 0), (0, 1), (1, 1), (1, 0))
 
-launches = {"hex8_stiffness": 0, "stencil_matvec": 0, "csr_matvec": 0}
+launches = {"hex8_stiffness": 0, "hex8_stiffness_coord_grad": 0,
+            "stencil_matvec": 0, "csr_matvec": 0, "csr_data_grad": 0}
 
 
 def reset_launches() -> None:
@@ -118,42 +126,95 @@ def _hex8_launch(ecoords_l, lam, mu):
     return out
 
 
+def hex8_stiffness_coord_grad_plain(ecoords_l, lam, mu, grad):
+    """Plain form of K1's coordinate backward: d<grad, K1(x, lam, mu)>/dx,
+    (3, 8, ne) for a (24, 24, ne) grad, by the kernel's contractions, not by
+    autograd. At each Gauss point, with N = dNx (3, 8), dN the reference
+    gradients, inv = J^-1, s = w detJ and Gs_ab the (3, 3) block of grad's
+    symmetric part at nodes a, b (k_e is symmetric):
+
+        M_ab       = lam Gs_ab + mu Gs_ab^T + mu tr(Gs_ab) I
+        Nbar'[:,a] = 2 sum_b M_ab N[:,b]      dL/dN = s Nbar'
+        C          = (Nbar' dN^T) inv^T       dL/ds = f = tr(C) / 2
+        Jbar       = s inv^T (f I - C)        dL/dJ = Jbar
+        dL/dx[d,a] = sum_p Jbar[p,d] dN[p,a]  summed over the points
+
+    f is the point's term of L without s: L is quadratic in N."""
+    from fem_tpu_torch.ops import stiffness  # stiffness imports this module
+
+    et = elements.get("hex")
+    dN = stiffness._table(et.dN, ecoords_l)  # (ip, 3, 8)
+    w = stiffness._table(et.weights, ecoords_l)
+    J = torch.einsum("ipa,dae->ipde", dN, ecoords_l)
+    det, inv = stiffness._det_inv_batchlast(J)  # inv[ip, p, q, e]
+    N = torch.einsum("ipqe,iqa->ipae", inv, dN)
+    G = grad.reshape(8, 3, 8, 3, -1)
+    Gs = 0.5 * (G + G.permute(2, 3, 0, 1, 4))  # [a, p, b, q, e]
+    tr = torch.einsum("apbpe->abe", Gs)
+    eye = torch.eye(3, dtype=grad.dtype, device=grad.device)
+    M = (lam * Gs.permute(0, 2, 1, 3, 4) + mu * Gs.permute(0, 2, 3, 1, 4)
+         + mu * tr[:, :, None, None] * eye[:, :, None])  # [a, b, x, q, e]
+    nbar = 2 * torch.einsum("abxqe,iqbe->ixae", M, N)
+    C = torch.einsum("ipae,iqa,irqe->ipre", nbar, dN, inv)
+    f = 0.5 * torch.einsum("ippe->ie", C)
+    Jbar = (det * w[:, None])[:, None, None] * (
+        f[:, None, None] * inv.transpose(1, 2)
+        - torch.einsum("irpe,irde->ipde", inv, C))
+    return torch.einsum("ipde,ipa->dae", Jbar, dN)
+
+
+def _hex8_coord_grad_launch(ecoords_l, lam, mu, grad):
+    """One launch of K1's coordinate backward on CUDA tensors (the checked
+    inputs of a K1 launch): hex8_stiffness_coord_grad_plain's contract."""
+    ne = ecoords_l.shape[-1]
+    _check(grad.shape == (24, 24, ne) and grad.dtype == ecoords_l.dtype
+           and grad.device == ecoords_l.device and grad.is_contiguous(),
+           "grad must be a contiguous (24, 24, {}) tensor like ecoords_l",
+           ne)
+    out = torch.empty_like(ecoords_l)
+    if ne == 0:
+        return out
+    _launch("hex8_stiffness_coord_grad", ecoords_l, ecoords_l.data_ptr(),
+            lam.data_ptr(), mu.data_ptr(), grad.data_ptr(), out.data_ptr(),
+            ne)
+    return out
+
+
 class _Hex8Stiffness(torch.autograd.Function):
-    """K1 with autograd in lam and mu. k_e is linear in (lam, mu) per
+    """K1 with autograd in every input. k_e is linear in (lam, mu) per
     element, so with G the gradient of the output,
     grad_lam[e] = sum G[:, :, e] * K1(x, 1, 0)[:, :, e] and grad_mu likewise
-    with K1(x, 0, 1): one more K1 launch and one reduction for each."""
+    with K1(x, 0, 1): one more K1 launch and one reduction for each. The
+    gradient in the coordinates is one launch of its own kernel."""
 
     @staticmethod
     def forward(ctx, ecoords_l, lam, mu):
-        ctx.save_for_backward(ecoords_l)
+        ctx.save_for_backward(ecoords_l, lam, mu)
         return _hex8_launch(ecoords_l, lam, mu)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "the gradient of K1 (hex8_stiffness) with respect to the "
-                "element coordinates is not ported on CUDA (ROADMAP A.8, "
-                "open row); on the CPU the plain form gives it")
-        (x,) = ctx.saved_tensors
+        x, lam, mu = ctx.saved_tensors
         grad = grad.contiguous()
-        one = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
-        zero = torch.zeros_like(one)
-        g_lam = g_mu = None
-        if ctx.needs_input_grad[1]:
-            g_lam = (grad * _hex8_launch(x, one, zero)).sum((0, 1))
-        if ctx.needs_input_grad[2]:
-            g_mu = (grad * _hex8_launch(x, zero, one)).sum((0, 1))
-        return None, g_lam, g_mu
+        g_x = g_lam = g_mu = None
+        if ctx.needs_input_grad[0]:
+            g_x = _hex8_coord_grad_launch(x, lam, mu, grad)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            one = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+            zero = torch.zeros_like(one)
+            if ctx.needs_input_grad[1]:
+                g_lam = (grad * _hex8_launch(x, one, zero)).sum((0, 1))
+            if ctx.needs_input_grad[2]:
+                g_mu = (grad * _hex8_launch(x, zero, one)).sum((0, 1))
+        return g_x, g_lam, g_mu
 
 
 def hex8_stiffness(ecoords_l, lam, mu):
     """K1 wrapper: same contract as hex8_stiffness_plain. On CUDA tensors
-    it is differentiable in lam and mu (_Hex8Stiffness); a gradient with
-    respect to ecoords_l raises there. On CPU tensors it is the plain form,
-    differentiable in every input."""
+    it is differentiable in every input through _Hex8Stiffness, whose
+    backward launches kernels only. On CPU tensors it is the plain form,
+    differentiable in every input by autograd."""
     if ecoords_l.device.type == "cpu":
         return hex8_stiffness_plain(ecoords_l, lam, mu)
     return _Hex8Stiffness.apply(ecoords_l, lam, mu)
@@ -362,29 +423,42 @@ def csr_lanes(n_rows: int, nnz: int) -> int:
     return lanes
 
 
+def _csr_rows(indptr, dtype=torch.int64):
+    """(nnz,) the row of each nonzero of a CSR table."""
+    n = indptr.shape[0] - 1
+    return torch.repeat_interleave(
+        torch.arange(n, dtype=dtype, device=indptr.device), indptr.diff())
+
+
 def csr_matvec_plain(indptr, indices, data, x):
     """Plain form of K3: out[i] = sum_k data[k] * x[indices[k]] over
     indptr[i] <= k < indptr[i + 1]. indptr: (n + 1,) int64, indices: (nnz,)
     int32, data: (nnz,) float, x: (ncols,) -> (n,)."""
-    n = indptr.shape[0] - 1
-    rows = torch.repeat_interleave(torch.arange(n, device=x.device),
-                                   indptr.diff())
-    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(
-        0, rows, data * x[indices])
+    return torch.zeros(indptr.shape[0] - 1, dtype=x.dtype,
+                       device=x.device).index_add_(0, _csr_rows(indptr),
+                                                   data * x[indices])
 
 
-def csr_matvec(indptr, indices, data, x, lanes: int):
-    """K3 wrapper: same contract as csr_matvec_plain; `lanes` threads share a
-    row (csr_lanes). On CUDA tensors it has no backward: an input that
-    requires grad raises there. On CPU tensors it is the plain form,
-    differentiable in data and x."""
-    if not x.is_cuda:
-        _check(x.device.type == "cpu", "unsupported device {}", x.device)
-        return csr_matvec_plain(indptr, indices, data, x)
-    if torch.is_grad_enabled() and (x.requires_grad or data.requires_grad):
-        raise NotImplementedError(
-            "the gradient of K3 (csr_matvec) is not ported on CUDA (ROADMAP "
-            "A.8, open row); on the CPU the plain form gives it")
+def csr_data_grad_plain(indptr, indices, x, gy):
+    """Plain form of K3's backward in data: out[k] = gy[i] * x[indices[k]]
+    over indptr[i] <= k < indptr[i + 1]; (nnz,)."""
+    return gy[_csr_rows(indptr)] * x[indices]
+
+
+def csr_transpose(indptr, indices, data, ncols: int):
+    """(indptr, indices, data, lanes) of the transposed table, on the
+    table's device: a stable sort of the nonzeros by column keeps each
+    column's rows in order. data is taken as a constant."""
+    with torch.no_grad():
+        order = torch.sort(indices, stable=True).indices
+        counts = torch.bincount(indices.long(), minlength=ncols)
+        return (F.pad(torch.cumsum(counts, 0), (1, 0)),
+                _csr_rows(indptr, torch.int32)[order],
+                data[order].contiguous(), csr_lanes(ncols, data.shape[0]))
+
+
+def _k3_launch(indptr, indices, data, x, lanes):
+    """One K3 launch on CUDA tensors: csr_matvec_plain's contract."""
     index = x.get_device()
     _check(x.dim() == 1 and data.dtype == x.dtype
            and data.get_device() == index,
@@ -406,3 +480,62 @@ def csr_matvec(indptr, indices, data, x, lanes: int):
     _launch("csr_matvec", x, indptr.data_ptr(), indices.data_ptr(),
             data.data_ptr(), x.data_ptr(), out.data_ptr(), n, lanes)
     return out
+
+
+def _csr_data_grad_launch(indptr, indices, x, gy, lanes):
+    """One launch of K3's backward in data on the checked inputs of a K3
+    launch and a contiguous (n,) gy: csr_data_grad_plain's contract."""
+    _check(gy.shape == (indptr.shape[0] - 1,) and gy.dtype == x.dtype
+           and gy.device == x.device and gy.is_contiguous(),
+           "gy must be a contiguous ({},) vector like x",
+           indptr.shape[0] - 1)
+    out = torch.empty(indices.shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch("csr_data_grad", x, indptr.data_ptr(), indices.data_ptr(),
+            x.data_ptr(), gy.data_ptr(), out.data_ptr(), gy.shape[0], lanes)
+    return out
+
+
+class _CsrMatvec(torch.autograd.Function):
+    """K3 with autograd in data and x. For out = A x, the gradient in x is
+    A^T gy: one K3 launch on the transposed table, which `transpose`
+    returns (the table keeps it: amg.Csr.transposed). The gradient in data
+    is gy[row(k)] * x[indices[k]]: one csr_data_grad launch."""
+
+    @staticmethod
+    def forward(ctx, indptr, indices, data, x, lanes, transpose):
+        ctx.save_for_backward(indptr, indices, data, x)
+        ctx.lanes, ctx.transpose = lanes, transpose
+        return _k3_launch(indptr, indices, data, x, lanes)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        indptr, indices, data, x = ctx.saved_tensors
+        grad = grad.contiguous()
+        g_data = g_x = None
+        if ctx.needs_input_grad[2]:
+            g_data = _csr_data_grad_launch(indptr, indices, x, grad,
+                                           ctx.lanes)
+        if ctx.needs_input_grad[3]:
+            t = ctx.transpose()
+            g_x = _k3_launch(t.indptr, t.indices, t.data, grad, t.lanes)
+        return None, None, g_data, g_x, None, None
+
+
+def csr_matvec(indptr, indices, data, x, lanes: int, transpose):
+    """K3 wrapper: same contract as csr_matvec_plain; `lanes` threads share a
+    row (csr_lanes). On CUDA tensors it is differentiable in data and x
+    through _CsrMatvec, whose backward launches kernels only; `transpose`
+    is a callable that returns the transposed table (indptr, indices, data
+    and lanes attributes; amg.Csr.transposed, which forms it once and keeps
+    it). Without an input that requires grad, or with grad mode off, K3 is
+    launched directly: no tensor is saved. On CPU tensors it is the plain
+    form, differentiable in data and x by autograd."""
+    if not x.is_cuda:
+        _check(x.device.type == "cpu", "unsupported device {}", x.device)
+        return csr_matvec_plain(indptr, indices, data, x)
+    if torch.is_grad_enabled() and (x.requires_grad or data.requires_grad):
+        return _CsrMatvec.apply(indptr, indices, data, x, lanes, transpose)
+    return _k3_launch(indptr, indices, data, x, lanes)

@@ -16,6 +16,8 @@ Division of labour:
     kernel K3 (`cuda_kernels.csr_matvec`) for the prolongation P, the
     restriction R = P^T (a CSR over coarse rows) and the mid-level
     operators, and a dense coarsest inverse (Cholesky on the device).
+    The cycle is differentiable there: K3's backward in x is K3 on the
+    table's transpose, which each P and R holds in the other.
 
 The preconditioner is symmetric positive definite (same-degree Chebyshev
 pre/post smoothing, adjoint transfers, Galerkin coarse operators), so it is a
@@ -297,6 +299,10 @@ class Csr:
     data: torch.Tensor  # (nnz,)
     ncols: int
     lanes: int
+    # the table of A^T, once formed or linked (link_transposes); a copy
+    # made with dataclasses.replace starts without one
+    _t: Optional["Csr"] = dataclasses.field(default=None, init=False,
+                                            repr=False, compare=False)
 
     @classmethod
     def from_csr(cls, A, dtype, device) -> "Csr":
@@ -316,11 +322,29 @@ class Csr:
                               self.indices.cpu().numpy(),
                               self.indptr.cpu().numpy()), shape=self.shape)
 
+    def transposed(self) -> "Csr":
+        """The table of A^T, which K3's backward in x runs: formed once on
+        the table's device (cuda_kernels.csr_transpose), the first time it
+        is asked for, then kept. The SA-AMG hierarchy links each P and
+        R = P^T to each other (link_transposes), so that neither is formed."""
+        if self._t is None:
+            indptr, indices, data, lanes = cuda_kernels.csr_transpose(
+                self.indptr, self.indices, self.data, self.ncols)
+            object.__setattr__(self, "_t", Csr(indptr, indices, data,
+                                               self.shape[0], lanes))
+        return self._t
+
     def __call__(self, x):
         if x.shape != (self.ncols,):
             raise ValueError(f"x must be ({self.ncols},), got {tuple(x.shape)}")
         return cuda_kernels.csr_matvec(self.indptr, self.indices, self.data, x,
-                                       self.lanes)
+                                       self.lanes, self.transposed)
+
+
+def link_transposes(P: Csr, R: Csr) -> None:
+    """Keep R as P's transposed table and P as R's (R = P^T exactly)."""
+    object.__setattr__(P, "_t", R)
+    object.__setattr__(R, "_t", P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -416,9 +440,11 @@ def build(
         elif levels:
             op = Csr.from_csr(level_A, dtype, device)
         lb = lam_max / LB_FRAC
+        P_t = Csr.from_csr(P, dtype, device)
+        R_t = Csr.from_csr(R, dtype, device)
+        link_transposes(P_t, R_t)
         levels.append(AMGLevel(
-            op=op, dense_op=dense_op, dinv=dev(dinv),
-            P=Csr.from_csr(P, dtype, device), R=Csr.from_csr(R, dtype, device),
+            op=op, dense_op=dense_op, dinv=dev(dinv), P=P_t, R=R_t,
             theta=float(0.5 * (lam_max + lb)),
             delta=float(0.5 * (lam_max - lb)),
             n_coarse=int(P.shape[1]),
@@ -483,6 +509,7 @@ def from_reference(h, dtype=torch.float64, device="cpu") -> AMGPrecond:
                                           np.asarray(lv.pt_fine))),
                 shape=(lv.n_coarse, n_fine))
             R = Csr.from_csr(Rt, dtype, device)
+            link_transposes(P, R)
         levels.append(AMGLevel(
             op=(csr(ev, lv.ell_cols, ev.shape[0])
                 if ev.shape[0] and lv.n_coarse else None),

@@ -2,8 +2,8 @@
 fem_tpu's functions (port of tests/test_differentiable.py): compliance with
 respect to per-element moduli, the hex8 element stiffness with respect to
 (lam, mu) and coordinates, the cohesive force with respect to its
-properties, and the kernels' autograd: K1's and K2's autograd Functions,
-and K3's refusal of a gradient on the card."""
+properties, and the kernels' autograd: the autograd Functions of K1, K2
+and K3, whose backward launches kernels on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +18,7 @@ from fem_tpu.ops import stiffness as j_stiffness
 from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.ops import (cohesive, cuda_kernels, elements, stiffness,
                                structured)
+from fem_tpu_torch.solver import amg
 
 from tests.test_differentiable import _compliance_fn
 
@@ -139,17 +140,23 @@ def k1_args(ne, seed, device="cpu"):
 
 
 def test_k1_autograd_function_backward(monkeypatch):
-    """K1's autograd Function, its launches replaced by the plain form (the
-    kernel runs only on the card): the gradients in (lam, mu) equal the
-    plain form's autograd, two more launches make them, and a coordinate
-    gradient raises."""
+    """K1's autograd Function, its launches replaced by the plain forms (the
+    kernels run only on the card): the gradients in (lam, mu) equal the
+    plain form's autograd, two more launches make them, and the coordinate
+    gradient equals it too, from one launch of its own kernel."""
     calls = []
 
     def plain_launch(*a):
         calls.append(a)
         return cuda_kernels.hex8_stiffness_plain(*a)
 
+    def plain_coord_grad(*a):
+        calls.append(a)
+        return cuda_kernels.hex8_stiffness_coord_grad_plain(*a)
+
     monkeypatch.setattr(cuda_kernels, "_hex8_launch", plain_launch)
+    monkeypatch.setattr(cuda_kernels, "_hex8_coord_grad_launch",
+                        plain_coord_grad)
     x, lam, mu, W = k1_args(7, 2)
     lam.requires_grad_()
     mu.requires_grad_()
@@ -161,9 +168,13 @@ def test_k1_autograd_function_backward(monkeypatch):
     for g, r in zip(got, ref):
         close(g, r, rtol=1e-12)
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.autograd.grad(
-            (W * cuda_kernels._Hex8Stiffness.apply(xg, lam, mu)).sum(), [lam])
+    lam, mu = lam.detach(), mu.detach()
+    (got,) = torch.autograd.grad(
+        (W * cuda_kernels._Hex8Stiffness.apply(xg, lam, mu)).sum(), [xg])
+    assert len(calls) == 5  # its forward and one coordinate-gradient launch
+    (ref,) = torch.autograd.grad(
+        (W * cuda_kernels.hex8_stiffness_plain(xg, lam, mu)).sum(), [xg])
+    close(got, ref, rtol=1e-12)
 
 
 @pytest.mark.cuda
@@ -181,10 +192,15 @@ def test_k1_autograd_function_on_card():
         (W * cuda_kernels.hex8_stiffness_plain(x, lam, mu)).sum(), [lam, mu])
     for g, r in zip(got, ref):
         close(g, r.cpu(), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        xg = x.clone().requires_grad_()
-        torch.autograd.grad(
-            (W * cuda_kernels.hex8_stiffness(xg, lam, mu)).sum(), [lam])
+    xg = x.clone().requires_grad_()
+    lam, mu = lam.detach(), mu.detach()
+    before = cuda_kernels.launches["hex8_stiffness_coord_grad"]
+    (got,) = torch.autograd.grad(
+        (W * cuda_kernels.hex8_stiffness(xg, lam, mu)).sum(), [xg])
+    assert cuda_kernels.launches["hex8_stiffness_coord_grad"] == before + 1
+    (ref,) = torch.autograd.grad(
+        (W * cuda_kernels.hex8_stiffness_plain(xg, lam, mu)).sum(), [xg])
+    close(got, ref.cpu(), rtol=1e-12)
 
 
 def k2_args(shape, seed, device="cpu"):
@@ -238,16 +254,32 @@ def test_k2_autograd_function_on_card():
 
 
 @pytest.mark.cuda
-def test_k3_gradient_raises_on_card():
+def test_k3_gradient_on_card():
+    """K3's autograd Function on a 2 x 2 amg.Csr table against the plain
+    form's autograd in x and data: two K3 launches (forward, then x's
+    backward on the table's kept transpose) and one csr_data_grad launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K3 has no CPU mode")
     indptr = torch.tensor([0, 2, 3], dtype=torch.int64, device="cuda")
     indices = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
-    data = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device="cuda")
+    data = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, device="cuda",
+                        requires_grad=True)
     x = torch.tensor([1.0, -1.0], dtype=torch.float64, device="cuda",
                      requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_kernels.csr_matvec(indptr, indices, data, x, 1)
+    gy = torch.tensor([0.5, -2.0], dtype=torch.float64, device="cuda")
+    t = amg.Csr(indptr, indices, data, 2, 1)
+    before = dict(cuda_kernels.launches)
+    out = t(x)
+    close(out, [-1.0, -3.0], rtol=1e-15)
+    got = torch.autograd.grad(out, [x, data], gy)
+    assert cuda_kernels.launches["csr_matvec"] == before["csr_matvec"] + 2
+    assert (cuda_kernels.launches["csr_data_grad"]
+            == before["csr_data_grad"] + 1)
+    ref = torch.autograd.grad(cuda_kernels.csr_matvec_plain(
+        indptr, indices, data, x), [x, data], gy)
+    for g, r in zip(got, ref):
+        close(g, r.cpu(), rtol=1e-15)
+    close(got[0], [0.5, 7.0], rtol=1e-15)  # A^T gy
     with torch.no_grad():
-        out = cuda_kernels.csr_matvec(indptr, indices, data, x, 1)
+        out = t(x)
     close(out, [-1.0, -3.0], rtol=1e-15)

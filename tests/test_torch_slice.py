@@ -103,5 +103,7 @@ def test_structured_box_matches_fem_tpu_mg_cg():
                      (r.aggregate_stress, jr.aggregate_stress)):
         assert np.abs(got - ref).max() <= 1e-9 * np.abs(ref).max()
     # CPU tensors never launch a kernel
-    assert cuda_kernels.launches == {"hex8_stiffness": 0, "stencil_matvec": 0,
-                                     "csr_matvec": 0}
+    assert cuda_kernels.launches == {"hex8_stiffness": 0,
+                                     "hex8_stiffness_coord_grad": 0,
+                                     "stencil_matvec": 0, "csr_matvec": 0,
+                                     "csr_data_grad": 0}

@@ -153,10 +153,37 @@ Phases, each of which exits non-zero when it fails:
      sharded_amg_cg with SA-AMG on the slab-permuted matrix: total
      iterations <= 2 x phase 9's + 4, u to 1e-9, residual <= 1e-8, K1 and K3
      launched;
- 26. one [comm] line per sharded tier: the collectives of one K.u.
+ 26. one [comm] line per sharded tier: the collectives of one K.u;
+ 27. K2's 2D branch (the collapsed 9-point stencil, 2 DOFs a node) against
+     the per-corner form and stencil9_plain, float64 (1e-12) and float32
+     (1e-6), the same bits on a second call, on the (ny, nx) = (1025, 2049)
+     node grid of phase 28's box, on (9, 7), (7, 9) and the degenerate
+     (2, 2), (3, 2), (1, 4), (2, 9); its times on the box's grid beside its
+     bound, stencil9_plain and cuSPARSE on the box's matrix (formed on the
+     card from the tables, checked against the per-corner form);
+ 28. the clamped 2D cantilever meshgen.quad_grid_problem(2048, 1024, lx=2,
+     ly=1) with a tip force (4,200,450 DOFs, float64) through stepper.run
+     and structured_mg_cg: the true relative residual (per-corner form,
+     <= 1e-8), MG-CG iterations, wall and phase timers, the 2D kernel's
+     launches by MG level, no call of stencil_matvec_plain in the run;
+     then the solve once more under torch.profiler: device time, kernels,
+     stream synchronizations and host-to-device copies per CG iteration
+     (the copies must be 0, and 0 in 20 fine K.u and 2 per-corner ones);
+ 29. the reference's make_example strip, meshgen.quad_strip_deck(4096,
+     64) (532,610 DOFs), written to a deck and run through the CLI with
+     --device cuda: path structured_mg_cg, the VTK written, true residual
+     <= 1e-8; the strip cut to 256 x 16 through the CLI on cuda and on
+     cpu, equal to 1e-9;
+ 30. the 2D slab-sharded row on phase 28's box, slabs along y, with
+     FEM_TPU_TORCH_VIRTUAL_DEVICES=4: matvec_sharded against matvec
+     (1e-12) with 4 and 3 shards, one 2D launch per slab; stepper.run with
+     n_devices=4 and 3 through sharded_slab_stencil: phase 28's iterations
+     +-1, u to 1e-9, residual <= 1e-8, the 2D kernel once per slab per fine
+     K.u.
 Each kernel's "launches" in the summary is the count of its main path's
-run ("launches_path": the 80^3 elastic run for K1 and K2, the 55^3 SA-AMG
-run for K3); "launches_by_path" gives every counted run's own count.
+run ("launches_path": the 80^3 elastic run for K1 and K2, phase 28's quad
+box for K2's 2D branch, the 55^3 SA-AMG run for K3); "launches_by_path"
+gives every counted run's own count.
 A "[ t s] phase" line at each phase's start gives the seconds since the
 script began.
 The line before the last is the per-kernel JSON summary; the last line is
@@ -1759,6 +1786,376 @@ def phase18_native(cli_main):
           f"(host times, best of 2)", flush=True)
 
 
+# the 2D structured row (phases 27-30): the clamped quad cantilever of
+# 2048 x 1024 cells, E = 3e10, nu = 0.25 (quad_grid_problem's material)
+QUAD_BOX = dict(nx=2048, ny=1024, lx=2.0, ly=1.0, tip_force=(0.0, -1e6))
+
+
+def quad_csr(torch, t):
+    """(indptr int64, indices int32, data) of the matrix of a 2D
+    scalar-material grid, formed on the card from K2's 2D tables t: every
+    row's nonzero coefficients, columns in order. The yardstick's input
+    (the 4.2M-DOF host assembly is too slow for this script); phase 27
+    checks its product against the per-corner form. The port never forms
+    it."""
+    import torch.nn.functional as F
+
+    from fem_tpu_torch.ops import cuda_kernels as ck
+
+    n0, n1 = t.shape
+    dev = t.coef.device
+    node = torch.arange(n0 * n1, device=dev)
+    offs = torch.tensor(ck.stencil_offsets(2), device=dev)
+    j0 = node[:, None] // n1 + offs[:, 0]
+    j1 = node[:, None] % n1 + offs[:, 1]
+    valid = (j0 >= 0) & (j0 < n0) & (j1 >= 0) & (j1 < n1)  # (nodes, 9)
+    vals = t.coef[ck._node_classes(t.shape, dev).reshape(-1)].permute(
+        0, 2, 1, 3)  # (nodes, p, o, q): a row's entries in column order
+    keep = valid[:, None, :, None] & (vals != 0)
+    cols = (2 * (j0 * n1 + j1))[:, None, :, None] + torch.arange(2,
+                                                                 device=dev)
+    indptr = F.pad(torch.cumsum(keep.reshape(2 * n0 * n1, 18).sum(1), 0),
+                   (1, 0))
+    return (indptr, cols.expand(vals.shape)[keep].to(torch.int32),
+            vals[keep].contiguous())
+
+
+def phase27_k2_2d(torch, dev, flush, csr_library):
+    """Phase 27: K2's 2D branch against both plain forms on the quad box's
+    node grid and the small and degenerate grids, then timed on the box's
+    grid beside its bound, its plain form and cuSPARSE. Returns the float64
+    measurements with the max abs error."""
+    import numpy as np
+
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.ops.stiffness import lame
+
+    lam, mu = lame(torch.tensor(3e10, dtype=torch.float64),
+                   torch.tensor(0.25, dtype=torch.float64))
+    box = (QUAD_BOX["ny"] + 1, QUAD_BOX["nx"] + 1)  # (ny, nx) node grid
+    cells = (QUAD_BOX["lx"] / QUAD_BOX["nx"], QUAD_BOX["ly"] / QUAD_BOX["ny"])
+
+    def inputs(op, dtype):
+        k = op.k_ref.to(dtype).contiguous()
+        t = (op.tables if dtype == op.k_ref.dtype
+             else ck.stencil_tables(k, op.shape))
+        u = torch.as_tensor(np.random.default_rng(0).standard_normal(op.ndof),
+                            dtype=dtype, device=dev)
+        return k, t, u
+
+    err = {}
+    for shape in (box, (9, 7), (7, 9), (2, 2), (3, 2), (1, 4), (2, 9)):
+        op = structured.build(cells if shape == box else (0.1, 0.2), shape,
+                              lam, mu, dtype=torch.float64, device=dev)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+            name = str(dtype).split(".")[-1]
+            k, t, u = inputs(op, dtype)
+            before = ck.launches["stencil_matvec_2d"]
+            got = ck.stencil_matvec(t, u)
+            again = ck.stencil_matvec(t, u)
+            ref = ck.stencil_matvec_plain(k, u, shape)
+            ref9 = ck.stencil9_plain(t, u)
+            torch.cuda.synchronize()
+            check(ck.launches["stencil_matvec_2d"] == before + 2,
+                  f"K2 2D {shape}: not two launches of the 2D kernel")
+            check(bool(torch.isfinite(got).all()),
+                  f"K2 2D {shape}: non-finite")
+            check(torch.equal(got, again), f"K2 2D {name} {shape}: two calls "
+                  f"gave different bits")
+            nref = float(torch.linalg.norm(ref))
+            diffs = [float(torch.linalg.norm(got - r)) for r in (ref, ref9)]
+            # an axis of one node has no cell: K.u is 0 there, exactly
+            rel, rel9 = (d / nref if nref else d for d in diffs)
+            print(f"K2 2D {name} {shape}: rel norm diff {rel:.3e} against the "
+                  f"per-corner form, {rel9:.3e} against stencil9_plain (tol "
+                  f"{tol:.0e})", flush=True)
+            check(max(rel, rel9) <= tol,
+                  f"K2 2D {name} {shape}: rel diff {rel}, {rel9} > {tol}")
+            if dtype == torch.float64:
+                err[shape] = float((got - ref).abs().max())
+
+    # times on the box's grid beside cuSPARSE on the box's matrix
+    op = structured.build(cells, box, lam, mu, dtype=torch.float64, device=dev)
+    nodes = box[0] * box[1]
+    out = None
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = str(dtype).split(".")[-1]
+        k, t, u = inputs(op, dtype)
+        indptr, indices, data = quad_csr(torch, t)
+        lib = csr_library(indptr, indices, data, (op.ndof, op.ndof))
+        ref = ck.stencil_matvec_plain(k, u, box)
+        rel = float(torch.linalg.norm(lib(u) - ref) / torch.linalg.norm(ref))
+        print(f"K2 2D {name} {box}: cuSPARSE on the box's matrix "
+              f"({data.shape[0]} nonzeros) against the per-corner form: rel "
+              f"norm diff {rel:.3e} (tol {tol:.0e})", flush=True)
+        check(rel <= tol, f"K2 2D {name}: the box's CSR matrix is not K")
+        # least bytes: u in, K.u out, k_ref; least operations: the collapsed
+        # 9-point form, 36 FMAs per node
+        m = measure(torch, f"K2 2D {box}", name,
+                    lambda: ck.stencil_matvec(t, u),
+                    lambda: ck.stencil9_plain(t, u), lambda: lib(u),
+                    (4 * nodes + 64) * u.element_size(), 2 * 36 * nodes,
+                    flush)
+        out = out or dict(m, max_abs_err=err[box], shape=list(box))
+        del lib, indptr, indices, data
+    return out
+
+
+def profiled(torch, fn):
+    """fn() under torch.profiler: (device ms, kernels, stream
+    synchronizations, host-to-device copies, host seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = sync_wall(torch, fn)[1]
+    dev_ms, kernels, syncs, h2d = 0.0, 0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms += e.self_device_time_total / 1e3
+            if e.key.startswith("Memcpy HtoD"):
+                h2d += e.count
+            elif not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += e.count
+    return dev_ms, kernels, syncs, h2d, wall
+
+
+def phase28_quad_box(torch, dev):
+    """Phase 28: the clamped 2D cantilever (4,200,450 DOFs) through
+    stepper.run. Returns the run's result, its launches, the problem, its
+    stencil operator and its true relative residual as a function of u (for
+    phase 30)."""
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.solver import stepper
+
+    problem = meshgen.quad_grid_problem(**QUAD_BOX)
+    check(problem.ndof == 4200450 and problem.nels == 2097152,
+          f"the quad box has {problem.ndof} DOFs")
+    k2_by_grid, restore_k2 = tally_k2(ck, lambda t, u: t.shape)
+    plain, calls = ck.stencil_matvec_plain, []
+    setup, steps = stepper._SETUP["structured_mg_cg"], []
+
+    def counted_plain(*args):
+        calls.append(1)
+        return plain(*args)
+
+    def keeping(*args):
+        steps.append(setup(*args))
+        return steps[-1]
+
+    ck.stencil_matvec_plain = counted_plain
+    stepper._SETUP["structured_mg_cg"] = keeping
+    msgs = []
+    ck.reset_launches()
+    try:
+        res, wall = sync_wall(torch, lambda: stepper.run(
+            problem, Config(device="cuda", timing=True), log=msgs.append))
+    finally:
+        restore_k2()
+        ck.stencil_matvec_plain = plain
+        stepper._SETUP["structured_mg_cg"] = setup
+    launches = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    check(res.path == "structured_mg_cg", f"the quad box took {res.path}")
+    check(not calls, f"stencil_matvec_plain ran {len(calls)} times in the "
+                     f"run")
+    check(launches["stencil_matvec_2d"] > 0
+          and launches["stencil_matvec_2d"] == sum(k2_by_grid.values())
+          and launches["stencil_matvec"] == 0,
+          f"the quad box's K.u did not all go through the 2D kernel: "
+          f"{launches}, by grid {k2_by_grid}")
+    u = torch.as_tensor(res.aggregate_u, device=dev)
+    check(bool(torch.isfinite(u).all())
+          and res.aggregate_stress.shape == (problem.nnds, 3)
+          and bool(np.isfinite(res.aggregate_stress).all()),
+          "quad box solution or stress not finite / wrong shape")
+    system, op, rel = structured_box(torch, dev, problem)
+    F = system.rhs(0.0)
+    true_rel = rel(F, u)
+    tip = float(u.reshape(-1, 2)[:, 1].min())
+    iters = res.krylov_iters[0]
+    # the solve twice more from the same zero start: timed, then under
+    # torch.profiler
+    zero = torch.zeros_like(F)
+    t_solve = sync_wall(torch, lambda: steps[0](F, zero, zero,
+                                                problem.dt))[1]
+    dev_ms, kernels, syncs, h2d, t_prof = profiled(
+        torch, lambda: steps[0](F, zero, zero, problem.dt))
+    # the operator alone: 20 fine K.u, and 2 of the per-corner form
+    k_h2d = profiled(torch, lambda: [structured.matvec(op, u)
+                                     for _ in range(20)])[3]
+    p_h2d = profiled(torch, lambda: [ck.stencil_matvec_plain(
+        op.k_ref, u, op.shape) for _ in range(2)])[3]
+    timers = {k: round(v, 4) for k, v in res.timers.totals.items()}
+    print(f"quad box {QUAD_BOX['nx']} x {QUAD_BOX['ny']} ({problem.ndof} "
+          f"DOFs, float64): MG-CG iterations {res.krylov_iters}, true rel "
+          f"residual {true_rel:.3e}, stepper.run wall {wall:.3f} s (phases "
+          f"{timers} s), min u_y {tip:.6e}; 2D kernel launches "
+          f"{launches['stencil_matvec_2d']}, by MG level {k2_by_grid}; "
+          f"stencil_matvec_plain calls in the run {len(calls)}", flush=True)
+    print(f"quad box, the solve again: wall {t_solve * 1e3:.2f} ms; "
+          f"profiled: wall {t_prof * 1e3:.2f} ms, device {dev_ms:.2f} ms "
+          f"({100 * dev_ms / 1e3 / t_prof:.1f}% busy), {kernels} "
+          f"kernels ({kernels / iters:.1f} per CG iteration), "
+          f"{syncs} stream synchronizations ({syncs / iters:.1f} per CG "
+          f"iteration), {h2d} host-to-device copies ({h2d / iters:.2f} per "
+          f"CG iteration); 20 fine K.u {k_h2d} copies, 2 per-corner K.u "
+          f"{p_h2d}", flush=True)
+    check(true_rel <= 1e-8, f"quad box true rel residual {true_rel} > 1e-8")
+    check(tip < 0.0, "quad box: the tip force did not deflect the tip down")
+    check(h2d == 0 and k_h2d == 0 and p_h2d == 0,
+          f"host-to-device copies: {h2d} in the solve, {k_h2d} in 20 K.u, "
+          f"{p_h2d} in 2 per-corner K.u")
+    return res, launches, problem, op, lambda v: rel(F, v)
+
+
+def phase29_strip_cli(torch, dev, cli_main, vtk):
+    """Phase 29: the reference's make_example strip, 4096 x 64 quads
+    (532,610 DOFs), through the CLI on the card; the strip cut to 256 x 16
+    against its CPU run. Returns the big run's launches."""
+    import os
+
+    import numpy as np
+
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.models import problem as problem_mod
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.solver import stepper
+
+    def run_cli(tmp, nx, ny, device):
+        deck = os.path.join(tmp, f"strip_{nx}x{ny}.inp")
+        with open(deck, "w") as f:
+            f.write(meshgen.quad_strip_deck(nx, ny))
+        prefix = os.path.join(tmp, f"{device}_{nx}x{ny}_")
+        with kept(problem_mod, "load") as loaded, \
+                kept(stepper, "run") as runs:
+            rc, wall = sync_wall(torch, lambda: cli_main(
+                ["-f", deck, "--device", device, "-o", prefix]))
+        check(rc == 0, f"CLI on the {nx} x {ny} strip exited {rc}")
+        path = f"{prefix}0_output_000000.vtk"
+        check(os.path.exists(path), f"no VTK from the {nx} x {ny} strip")
+        return loaded[0], runs[0], vtk.read_fields(path), wall
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck.reset_launches()
+        problem, res, fields, wall = run_cli(tmp, 4096, 64, "cuda")
+        launches = dict(ck.launches)
+        check(problem.ndof == 532610, f"the strip has {problem.ndof} DOFs")
+        check(res.path == "structured_mg_cg", f"the strip took {res.path}")
+        pts, stress, disp = fields
+        check(pts.shape[0] == problem.nnds and np.isfinite(disp).all()
+              and np.isfinite(stress).all(), "the strip's VTK fields")
+        system, op, rel = structured_box(torch, dev, problem)
+        true_rel = rel(system.rhs(0.0),
+                       torch.as_tensor(res.aggregate_u, device=dev))
+        print(f"make_example strip 4096 x 64 ({problem.ndof} DOFs) via the "
+              f"CLI on cuda: path {res.path}, MG-CG iterations "
+              f"{res.krylov_iters}, true rel residual {true_rel:.3e}, CLI "
+              f"wall {wall:.2f} s, VTK of {pts.shape[0]} points, launches "
+              f"{launches}", flush=True)
+        check(true_rel <= 1e-8, f"strip true rel residual {true_rel} > 1e-8")
+        check(launches["stencil_matvec_2d"] > 0,
+              "the strip launched no 2D kernel")
+        del system, op
+        small = {d: run_cli(tmp, 256, 16, d) for d in ("cuda", "cpu")}
+    got, ref = (small[d][1] for d in ("cuda", "cpu"))
+    d_u = rel_max(got.aggregate_u, ref.aggregate_u)
+    d_s = rel_max(got.aggregate_stress, ref.aggregate_stress)
+    # the VTK prints six decimals: its fields agree to 1e-9 of the largest
+    # entry or to one unit of the sixth decimal, whichever is coarser
+    vtk_ok = all(
+        np.abs(a - b).max() <= max(1e-9 * np.abs(b).max(), 1.5e-6)
+        for a, b in zip(small["cuda"][2], small["cpu"][2]))
+    print(f"make_example strip 256 x 16 via the CLI: cuda against cpu, "
+          f"paths {got.path} / {ref.path}, iterations {got.krylov_iters} / "
+          f"{ref.krylov_iters}, max |du| / max |u| {d_u:.3e}, stress "
+          f"{d_s:.3e} (tol 1e-9), VTK fields equal to their printed "
+          f"precision: {vtk_ok}", flush=True)
+    check(got.path == ref.path == "structured_mg_cg",
+          f"the 256 x 16 strip took {got.path} / {ref.path}")
+    check(max(d_u, d_s) <= 1e-9 and vtk_ok, "the 256 x 16 strip: cuda != cpu")
+    return launches
+
+
+def phase30_slab_2d(torch, dev, problem, op, true_rel_of, res28):
+    """Phase 30: the 2D slab-sharded row on phase 28's box, slabs along y
+    (the leading axis of the (ny, nx) node grid), 4 and 3 shards on this
+    card. Returns the launches of the two runs."""
+    import os
+
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import structured
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.solver import stepper
+
+    os.environ[mesh_mod.VIRTUAL_ENV] = "4"
+    n0, n1 = op.shape
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(op.ndof),
+                        device=dev)
+    ref = structured.matvec(op, u)
+    launches = {}
+    for shards in (4, 3):
+        sl = structured.shard_slabs(op, mesh_mod.make_mesh(shards,
+                                                           device="cuda"))
+        ck.reset_launches()
+        err = rel_max(structured.matvec_sharded(sl, u), ref)
+        k2 = ck.launches["stencil_matvec_2d"]
+        print(f"2D slab stencil, {shards} shards (slabs "
+              f"{[e - s for s, e in sl.bounds]} cells along y): "
+              f"matvec_sharded rel diff {err:.3e} (tol 1e-12), 2D kernel "
+              f"launches {k2}", flush=True)
+        check(err <= 1e-12, f"2D matvec_sharded, {shards} shards: {err}")
+        check(k2 == shards, f"2D matvec_sharded launched {k2} 2D kernels")
+        slab_grids = {(e - s + 1, n1) for s, e in sl.bounds}
+        del sl
+        k2_by_grid, restore_k2 = tally_k2(ck, lambda t, v: t.shape)
+        ck.reset_launches()
+        try:
+            res, wall, msgs, cols, solve = traced_run(
+                torch, stepper, problem, Config(device="cuda",
+                                                n_devices=shards))
+        finally:
+            restore_k2()
+        launches[shards] = dict(ck.launches)
+        rel_u = rel_max(res.aggregate_u, res28.aggregate_u)
+        true_rel = true_rel_of(torch.as_tensor(res.aggregate_u, device=dev))
+        ar = [c[2] for c in solve if c[0] == "all_reduce_sum"]
+        on_slabs = {g: k for g, k in k2_by_grid.items()
+                    if g[0] < n0 and g[1] == n1}
+        print(f"sharded slab stencil, 2D quad box, {shards} shards on 1 card: "
+              f"path {res.path}, MG-CG iterations {res.krylov_iters} (single "
+              f"device {res28.krylov_iters}), max |du| / max |u| "
+              f"{rel_u:.3e} (tol 1e-9), true rel residual {true_rel:.3e}, "
+              f"{len(ar)} all-reduces in the solve, stepper.run wall "
+              f"{wall:.2f} s (no scaling statement), 2D kernel launches "
+              f"{launches[shards]['stencil_matvec_2d']}, on slab grids "
+              f"{on_slabs}", flush=True)
+        check_run(res, res28, "sharded_slab_stencil", rel_u, true_rel,
+                  f"2D quad box, {shards} shards")
+        check(all(abs(i - j) <= 1 for i, j in zip(res.krylov_iters,
+                                                  res28.krylov_iters)),
+              f"2D sharded MG-CG iterations {res.krylov_iters} against "
+              f"{res28.krylov_iters}")
+        check(set(on_slabs) == slab_grids and len(ar) * shards
+              == sum(on_slabs.values()),
+              f"the 2D kernel did not run once per slab per fine K.u: "
+              f"{k2_by_grid}")
+    return launches[4], launches[3]
+
+
 def main():
     import torch
 
@@ -2488,6 +2885,20 @@ def main():
             ("halo-gather matvec (permuted 55^3)", comm_gather)):
         print(commcount.summary(tier, comm), flush=True)
 
+    stamp("phase 27-30: the 2D structured row")
+    # 27. K2's 2D branch against its plain forms, timed beside cuSPARSE
+    summary["stencil_matvec_2d"] = phase27_k2_2d(torch, dev, flush,
+                                                 csr_library)
+    # 28. the 4,200,450-DOF quad cantilever through stepper.run
+    res28, launches_quad, quad, quad_op, quad_rel = phase28_quad_box(torch,
+                                                                     dev)
+    # 29. the reference's make_example strip through the CLI
+    launches_strip2d = phase29_strip_cli(torch, dev, cli_main, vtk)
+    # 30. the 2D slab-sharded row, 4 and 3 shards on this card
+    launches_slab2d4, launches_slab2d3 = phase30_slab_2d(
+        torch, dev, quad, quad_op, quad_rel, res28)
+    del res28, quad, quad_op, quad_rel
+
     summary["csr_matvec"] = k3_real
     # each path's own launches, each counted from 0 just before its run
     runs = {"direct_6": {"hex8_stiffness": k1_direct},
@@ -2502,20 +2913,28 @@ def main():
             "sharded_slab_80": launches_slab4,
             "sharded_slab_80_3shards": launches_slab3,
             "sharded_halo_block_55": launches_halo_block,
-            "sharded_halo_gather_55": launches_halo_gather}
+            "sharded_halo_gather_55": launches_halo_gather,
+            "quad_box_2d": launches_quad, "quad_strip_cli": launches_strip2d,
+            "sharded_slab_quad_2d": launches_slab2d4,
+            "sharded_slab_quad_2d_3shards": launches_slab2d3}
     # "launches" is the count of the kernel's main path: the 80^3 elastic
-    # run for K1 and K2, the 55^3 SA-AMG run for K3, the 6^3 compliance
-    # gradient in the coordinates for K1's coordinate backward and the
-    # gradient through the 55^3 V-cycle for K3's backward in data
+    # run for K1 and K2, the 2D quad box's run for K2's 2D branch, the 55^3
+    # SA-AMG run for K3, the 6^3 compliance gradient in the coordinates for
+    # K1's coordinate backward and the gradient through the 55^3 V-cycle
+    # for K3's backward in data
     main_path = {"hex8_stiffness": "elastic_80",
                  "hex8_stiffness_coord_grad": "grad_coords_6",
-                 "stencil_matvec": "elastic_80", "csr_matvec": "amg_55",
+                 "stencil_matvec": "elastic_80",
+                 "stencil_matvec_2d": "quad_box_2d", "csr_matvec": "amg_55",
                  "csr_data_grad": "grad_vcycle_55"}
     sources = {
         "hex8_stiffness": ("fem_tpu_torch/csrc/hex8_stiffness.cu",
                            "fem_tpu/ops/pallas_kernels.py:352"),
         "stencil_matvec": ("fem_tpu_torch/csrc/stencil_matvec.cu",
                            "fem_tpu/ops/pallas_kernels.py:302"),
+        # K2's function on 2D grids, which the Pallas kernel does not cover
+        "stencil_matvec_2d": ("fem_tpu_torch/csrc/stencil_matvec.cu",
+                              "fem_tpu/ops/pallas_kernels.py:302"),
         "csr_matvec": ("fem_tpu_torch/csrc/csr_matvec.cu",
                        "fem_tpu/ops/pallas_kernels.py:432"),
         # the backward kernels of K1 and K3, whose Pallas kernels have none
@@ -2531,6 +2950,8 @@ def main():
           flush=True)
     print("K3's backward in x (K3 on the transposed 55^3 level-0 tables), "
           "float64: " + json.dumps(k3_x_bar), flush=True)
+    print("K2's 2D branch on the quad box's grid, float64: "
+          + json.dumps(summary["stencil_matvec_2d"]), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": runs[main_path[name]][name],

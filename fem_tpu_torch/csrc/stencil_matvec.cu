@@ -38,6 +38,36 @@
 //    through the read-only path. At 81^3 they are 38,402 of 531,441 nodes.
 // An axis of one node has no cell; its tables are 0 and so is K.u. Every sum
 // is taken in a fixed order.
+//
+// The 2D branch (stencil9_kernel, entry points stencil_matvec2d_*): K.u on a
+// uniform quad4 node grid, the collapsed 9-point stencil with 2 DOFs a node,
+//
+//   out_p[n] = sum_{o, q} C[class(n), o, p, q] u_q[n + o],
+//
+// o the 9 offsets in {-1, 0, 1}^2 (o = 3 (o0+1) + (o1+1)), class(n) = 3 c0 +
+// c1 with c as above, C of shape (9, 9, 2, 2) and C[4] the interior stencil
+// (36 values, passed by value as the 3D kernel passes its 243). The grid is
+// (n0, n1) = (ny, nx), y-major as meshgen and the reference's make_example
+// number the nodes; u and out are (n0, n1, 2), x fastest. The Pallas K2 is
+// 3D only (fem_tpu computes 2D K.u in XLA: structured.matvec_planes27), so
+// this branch is K2's function in the dimension the TPU kernel never
+// covered. Same result as cuda_kernels.stencil9_plain, and to rounding as
+// stencil_matvec_plain.
+//
+// What bounds it on the H100: bytes. In float64 on the 2049 x 1025 node grid
+// u and out are 2 x 33.6 MB, 0.0201 ms at 3.35 TB/s; the 36 FMAs per node
+// take 0.0044 ms at 34 TFLOP/s.
+//
+// Design: one thread per node, consecutive threads on consecutive nodes of a
+// row, so each of the 9 neighbour loads of a warp is one contiguous run of
+// 32 nodes; the three rows a block reads overlap the next blocks' and are
+// served by L1 and L2, so device memory sees u about once. Interior nodes
+// take their coefficients from the by-value argument (the constant bank),
+// boundary nodes their class's row of C through the read-only path, with the
+// loads of a neighbour outside the grid clamped into it and its values
+// replaced by 0. Every node's sum runs over o, then q, in one fixed order:
+// no atomics, the same bits on every run. Shared-memory tiling and cp.async
+// are later work.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -218,7 +248,78 @@ int launch(const void* interior, const void* coef, const void* u, void* out,
   return (int)cudaGetLastError();
 }
 
+constexpr int kThreads2D = 256;
+
+template <typename T>
+struct Interior2D {
+  T c[9 * 4];  // C[4][o][p][q]
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads2D)
+stencil9_kernel(const Interior2D<T> ci, const T* __restrict__ coef,
+                const T* __restrict__ u, T* __restrict__ out, int n0,
+                int n1) {
+  const long long n = (long long)blockIdx.x * kThreads2D + threadIdx.x;
+  if (n >= (long long)n0 * n1) return;
+  const int i0 = (int)(n / n1), i1 = (int)(n % n1);
+  T a0 = 0, a1 = 0;
+  if (i0 >= 1 && i0 <= n0 - 2 && i1 >= 1 && i1 <= n1 - 2) {
+#pragma unroll
+    for (int o = 0; o < 9; ++o) {
+      const T* up = u + (n + (long long)(o / 3 - 1) * n1 + (o % 3 - 1)) * 2;
+      const T v0 = __ldg(up), v1 = __ldg(up + 1);
+      a0 += ci.c[o * 4] * v0;
+      a0 += ci.c[o * 4 + 1] * v1;
+      a1 += ci.c[o * 4 + 2] * v0;
+      a1 += ci.c[o * 4 + 3] * v1;
+    }
+  } else {
+    const T* cc = coef + (3 * axis_class(i0, n0) + axis_class(i1, n1)) * 36;
+#pragma unroll
+    for (int o = 0; o < 9; ++o) {
+      const int j0 = i0 + o / 3 - 1, j1 = i1 + o % 3 - 1;
+      const bool in = j0 >= 0 && j0 < n0 && j1 >= 0 && j1 < n1;
+      const T* up = u + ((long long)min(max(j0, 0), n0 - 1) * n1 +
+                         min(max(j1, 0), n1 - 1)) * 2;
+      const T v0 = in ? __ldg(up) : T(0), v1 = in ? __ldg(up + 1) : T(0);
+      const T* k = cc + o * 4;
+      a0 += __ldg(k) * v0;
+      a0 += __ldg(k + 1) * v1;
+      a1 += __ldg(k + 2) * v0;
+      a1 += __ldg(k + 3) * v1;
+    }
+  }
+  out[2 * n] = a0;
+  out[2 * n + 1] = a1;
+}
+
+template <typename T>
+int launch2d(const void* interior, const void* coef, const void* u,
+             void* out, int n0, int n1, void* stream) {
+  Interior2D<T> ci;
+  std::memcpy(ci.c, interior, sizeof(ci.c));
+  const long long blocks =
+      ((long long)n0 * n1 + kThreads2D - 1) / kThreads2D;
+  stencil9_kernel<T><<<(unsigned)blocks, kThreads2D, 0,
+                       (cudaStream_t)stream>>>(ci, (const T*)coef,
+                                               (const T*)u, (T*)out, n0, n1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int stencil_matvec2d_f64(const void* interior, const void* coef,
+                                    const void* u, void* out, int n0, int n1,
+                                    void* stream) {
+  return launch2d<double>(interior, coef, u, out, n0, n1, stream);
+}
+
+extern "C" int stencil_matvec2d_f32(const void* interior, const void* coef,
+                                    const void* u, void* out, int n0, int n1,
+                                    void* stream) {
+  return launch2d<float>(interior, coef, u, out, n0, n1, stream);
+}
 
 extern "C" int stencil_matvec_f64(const void* interior, const void* coef,
                                   const void* u, void* out, int nx, int ny,

@@ -42,6 +42,10 @@ SIGNATURES = {
                            ctypes.c_int, _P],
     "stencil_matvec_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, _P],
+    # K2's 2D branch: (interior coefficients on the host, class tables, u,
+    # out, n0, n1) on the (n0, n1) = (ny, nx) node grid
+    "stencil_matvec2d_f64": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
+    "stencil_matvec2d_f32": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P],
     # (indptr, indices, data, x, out, n rows, lanes)
     "csr_matvec_f64": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                        _P],

@@ -8,6 +8,10 @@ checked against on the card), the wrapper, and a launch count.
   K2 stencil_matvec   csrc/stencil_matvec.cu  replaces stencil_matvec_pallas
   K3 csr_matvec       csrc/csr_matvec.cu      replaces ell_matvec_pallas
 
+K2 has a 2D branch, the 9-point form on (ny, nx) node grids with 2 DOFs a
+node (its own entry point, counted as "stencil_matvec_2d"): the Pallas
+kernel is 3D only, and fem_tpu computes 2D K.u in XLA.
+
 and two backward kernels, of the gradients that jax.grad takes through
 fem_tpu's jnp forms of K1 and K3 (its Pallas kernels have no backward):
 
@@ -51,7 +55,8 @@ HEX_OFFSETS = (
 QUAD_OFFSETS = ((0, 0), (0, 1), (1, 1), (1, 0))
 
 launches = {"hex8_stiffness": 0, "hex8_stiffness_coord_grad": 0,
-            "stencil_matvec": 0, "csr_matvec": 0, "csr_data_grad": 0}
+            "stencil_matvec": 0, "stencil_matvec_2d": 0, "csr_matvec": 0,
+            "csr_data_grad": 0}
 
 
 def reset_launches() -> None:
@@ -64,13 +69,14 @@ def _check(cond: bool, msg: str, *args) -> None:
         raise ValueError(msg.format(*args))
 
 
-def _launch(name: str, like, *args) -> None:
+def _launch(name: str, like, *args, key: str = "") -> None:
     """Launch C entry point `name_f64` or `name_f32` (by like's dtype) on
-    the current stream of like's device."""
+    the current stream of like's device; counted under `key` (default
+    name)."""
     index = like.get_device()
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
-            return _launch(name, like, *args)
+            return _launch(name, like, *args, key=key)
     fn = getattr(kernels_build.library(), f"{name}_{_float_suffix(like.dtype)}")
     # the private accessor skips the Stream object that
     # torch.cuda.current_stream builds, on paths that launch hundreds of
@@ -78,7 +84,7 @@ def _launch(name: str, like, *args) -> None:
     err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launches[name] += 1
+    launches[key or name] += 1
 
 
 def _float_suffix(dtype: torch.dtype) -> str:
@@ -227,14 +233,14 @@ def hex8_stiffness(ecoords_l, lam, mu):
 
 def _cell_mask(shape, off, like):
     """Float indicator over the node grid: 1 where the cell at node - off
-    exists (0 <= node - off <= n - 2 on every axis)."""
+    exists (0 <= node - off <= n - 2 on every axis). Built on like's device:
+    no host-to-device copy."""
     mask = None
     for ax, n in enumerate(shape):
-        x = np.arange(n) - off[ax]
+        x = torch.arange(n, device=like.device) - off[ax]
         m_shape = [1] * len(shape)
         m_shape[ax] = n
-        m = torch.as_tensor(((x >= 0) & (x <= n - 2)).reshape(m_shape),
-                            dtype=like.dtype, device=like.device)
+        m = ((x >= 0) & (x <= n - 2)).to(like.dtype).reshape(m_shape)
         mask = m if mask is None else mask * m
     return mask
 
@@ -248,8 +254,8 @@ def stencil_matvec_plain(k_ref, u, shape):
     k_ref: (nn*pdim, nn*pdim) scalar-material element stiffness; u: (ndof,)
     node-interleaved over the node grid `shape`; returns (ndof,). Each shifted
     read is a slice of a zero-padded component-planes tensor; M_a masks the
-    corners whose cell does not exist. The reference K2 is held against, and
-    the operator of 2D grids.
+    corners whose cell does not exist. The reference K2 is held against in
+    both dimensions; no solver path calls it.
     """
     shape = tuple(int(n) for n in shape)
     pdim = len(shape)
@@ -271,111 +277,152 @@ def stencil_matvec_plain(k_ref, u, shape):
     return out.movedim(0, -1).reshape(-1)
 
 
-# the 27 node offsets o of the collapsed stencil, o = 9 (ox+1) + 3 (oy+1) +
-# (oz+1) (fem_tpu's structured._pair_tables order)
-STENCIL_OFFSETS = tuple(itertools.product((-1, 0, 1), repeat=3))
+def stencil_offsets(pdim: int):
+    """The 3^pdim node offsets o of the collapsed stencil, in the order
+    o = sum over axes of (o_ax + 1) 3^(pdim - 1 - ax) (fem_tpu's
+    structured._pair_tables order): 27 in 3D, 9 in 2D."""
+    return tuple(itertools.product((-1, 0, 1), repeat=pdim))
+
+
+STENCIL_OFFSETS = stencil_offsets(3)
 
 
 @dataclasses.dataclass(frozen=True)
 class StencilTables:
-    """What K2 reads for one operator: coef[c, o, p, q] for the 27 node
-    classes c = 9 cx + 3 cy + cz (on each axis 0 at the first node, 2 at the
-    last, 1 between) and the 27 offsets o, such that
+    """What K2 reads for one operator on a 3D or a 2D node grid: coef[c, o,
+    p, q] for the 3^pdim node classes c (on each axis 0 at the first node, 2
+    at the last, 1 between; c = 9 cx + 3 cy + cz in 3D, 3 c0 + c1 in 2D) and
+    the 3^pdim offsets o of stencil_offsets, such that
 
         out_p[n] = sum_{o, q} coef[class(n), o, p, q] u_q[n + o].
 
-    coef[13] is the interior stencil; `interior` is a copy of it on the CPU,
-    which the kernel takes by value."""
+    coef[centre] (centre = 13 in 3D, 4 in 2D) is the interior stencil;
+    `interior` is a copy of it on the CPU, which the kernel takes by value."""
 
-    coef: torch.Tensor  # (27, 27, 3, 3) on the operator's device and dtype
-    interior: torch.Tensor  # (243,) coef[13] on the CPU
-    shape: Tuple[int, int, int]
+    coef: torch.Tensor  # (27, 27, 3, 3) or (9, 9, 2, 2), operator's device
+    interior: torch.Tensor  # (243,) or (36,): coef[centre] on the CPU
+    shape: Tuple[int, ...]
+
+    @property
+    def centre(self) -> int:
+        return self.coef.shape[0] // 2
 
 
 def stencil_tables(k_ref, shape) -> StencilTables:
-    """K2's tables for a (24, 24) scalar-material k_ref on the 3D node grid
-    `shape`, built in float64 on the CPU and stored in k_ref's dtype on its
-    device. The cell at node - off_a exists, along one axis, for both corner
-    bits at an interior node, for bit 0 only at the first node and bit 1
-    only at the last; an axis of one node has no cell. So a class's
-    coefficient for offset o sums k[a, p, b, q] over the corners a whose
-    cell exists there, b the corner at off_a + o (fem_tpu's csum for the
-    interior class)."""
+    """K2's tables for a scalar-material k_ref ((24, 24) in 3D, (8, 8) in
+    2D) on the node grid `shape`, built in float64 on the CPU and stored in
+    k_ref's dtype on its device. The cell at node - off_a exists, along one
+    axis, for both corner bits at an interior node, for bit 0 only at the
+    first node and bit 1 only at the last; an axis of one node has no cell.
+    So a class's coefficient for offset o sums k[a, p, b, q] over the
+    corners a whose cell exists there, b the corner at off_a + o (fem_tpu's
+    csum for the interior class)."""
     shape = tuple(int(n) for n in shape)
-    k = k_ref.detach().to("cpu", torch.float64).reshape(8, 3, 8, 3)
+    pdim = len(shape)
+    offs = HEX_OFFSETS if pdim == 3 else QUAD_OFFSETS
+    nn, nc = len(offs), 3 ** pdim
+    k = k_ref.detach().to("cpu", torch.float64).reshape(nn, pdim, nn, pdim)
     # [axis][class, corner bit]: does the cell at node - bit exist
     masks = [torch.tensor([[float(n >= 2), 0.0], [1.0, 1.0], [0.0, 1.0]],
                           dtype=torch.float64) for n in shape]
-    coef = torch.zeros((27, 27, 3, 3), dtype=torch.float64)
-    for a, oa in enumerate(HEX_OFFSETS):
-        m = (masks[0][:, oa[0], None, None] * masks[1][None, :, oa[1], None]
-             * masks[2][None, None, :, oa[2]]).reshape(27, 1, 1)
-        for b, ob in enumerate(HEX_OFFSETS):
-            o = 9 * (ob[0] - oa[0] + 1) + 3 * (ob[1] - oa[1] + 1) + (
-                ob[2] - oa[2] + 1)
-            coef[:, o] += m * k[a, :, b, :]
+    coef = torch.zeros((nc, nc, pdim, pdim), dtype=torch.float64)
+    for a, oa in enumerate(offs):
+        m = masks[0][:, oa[0]]
+        for ax in range(1, pdim):
+            m = torch.outer(m, masks[ax][:, oa[ax]]).reshape(-1)
+        for b, ob in enumerate(offs):
+            o = 0
+            for x, y in zip(oa, ob):
+                o = 3 * o + y - x + 1
+            coef[:, o] += m[:, None, None] * k[a, :, b, :]
     coef = coef.to(k_ref.dtype)
     return StencilTables(coef=coef.to(k_ref.device),
-                         interior=coef[13].reshape(-1).contiguous(),
+                         interior=coef[nc // 2].reshape(-1).contiguous(),
                          shape=shape)
 
 
 def _node_classes(shape, device):
     """(*shape) long tensor of the node classes of StencilTables."""
-    cls = []
-    for n in shape:
+    out = None
+    for ax, n in enumerate(shape):
         c = torch.ones(n, dtype=torch.long, device=device)
         c[0] = 0
         if n >= 2:
             c[-1] = 2
-        cls.append(c)
-    return (9 * cls[0][:, None, None] + 3 * cls[1][None, :, None]
-            + cls[2][None, None, :])
+        c = c.reshape([n if i == ax else 1 for i in range(len(shape))])
+        out = c if out is None else 3 * out + c
+    return out
 
 
-def stencil27_plain(t: StencilTables, u):
-    """Plain form of K2: the interior row of the tables applied to every
-    node, one shifted copy of the zero-padded u at a time; then the boundary
-    nodes recomputed from their 27 gathered neighbours with their class's
-    row. u: (ndof,) node-interleaved over t.shape; returns (ndof,)."""
-    nx, ny, nz = shape = t.shape
-    U = F.pad(u.reshape(*shape, 3).movedim(-1, 0), [1, 1] * 3)
+def _collapsed_plain(t: StencilTables, u):
+    """The interior row of the tables applied to every node, one shifted
+    copy of the zero-padded u at a time; then the boundary nodes recomputed
+    from their 3^pdim gathered neighbours with their class's row. u: (ndof,)
+    node-interleaved over t.shape; returns (ndof,)."""
+    shape = t.shape
+    pdim = len(shape)
+    offsets = stencil_offsets(pdim)
+    U = F.pad(u.reshape(*shape, pdim).movedim(-1, 0), [1, 1] * pdim)
     out = None
-    for o, (ox, oy, oz) in enumerate(STENCIL_OFFSETS):
-        term = torch.tensordot(t.coef[13, o], U[:, 1 + ox:1 + ox + nx,
-                                                1 + oy:1 + oy + ny,
-                                                1 + oz:1 + oz + nz], dims=1)
+    for o, off in enumerate(offsets):
+        term = torch.tensordot(t.coef[t.centre, o], U[(slice(None),) + tuple(
+            slice(1 + d, 1 + d + n) for d, n in zip(off, shape))], dims=1)
         out = term if out is None else out.add_(term)
     cls = _node_classes(shape, u.device).reshape(-1)
-    bnd = torch.nonzero(cls != 13).squeeze(1)
-    # flat indices of the boundary nodes' 27 neighbours in the padded grid
-    sy, sz = ny + 2, nz + 2
-    base = ((bnd // (ny * nz) + 1) * sy + bnd // nz % ny + 1) * sz + (
-        bnd % nz + 1)
-    delta = torch.tensor([(ox * sy + oy) * sz + oz
-                          for ox, oy, oz in STENCIL_OFFSETS], device=u.device)
-    nbr = U.reshape(3, -1)[:, base[:, None] + delta]  # (3, boundary, 27)
+    bnd = torch.nonzero(cls != t.centre).squeeze(1)
+    # flat indices of the boundary nodes' neighbours in the padded grid
+    base = torch.zeros_like(bnd)
+    strides = []
+    for ax in range(pdim):
+        inner = int(np.prod(shape[ax + 1:], dtype=np.int64))
+        base = base * (shape[ax] + 2) + bnd // inner % shape[ax] + 1
+        strides.append(int(np.prod([n + 2 for n in shape[ax + 1:]],
+                                   dtype=np.int64)))
+    delta = torch.tensor([sum(d * s for d, s in zip(off, strides))
+                          for off in offsets], device=u.device)
+    nbr = U.reshape(pdim, -1)[:, base[:, None] + delta]  # (pdim, bnd, 3^pdim)
     # every class's row at these nodes, then each node's own class
     rows = torch.einsum("copq,qbo->bcp", t.coef, nbr)
-    out = out.reshape(3, -1)
+    out = out.reshape(pdim, -1)
     out[:, bnd] = rows[torch.arange(bnd.shape[0], device=u.device),
                        cls[bnd]].T
     return out.T.reshape(-1)
 
 
+def stencil27_plain(t: StencilTables, u):
+    """Plain form of K2 on a 3D node grid (the collapsed 27-point stencil
+    with its boundary classes)."""
+    _check(len(t.shape) == 3, "stencil27_plain takes 3D tables")
+    return _collapsed_plain(t, u)
+
+
+def stencil9_plain(t: StencilTables, u):
+    """Plain form of K2's 2D branch on a (ny, nx) node grid (the collapsed
+    9-point stencil with its boundary classes, fem_tpu's
+    structured.matvec_planes27 in 2D); the CPU path of 2D grids."""
+    _check(len(t.shape) == 2, "stencil9_plain takes 2D tables")
+    return _collapsed_plain(t, u)
+
+
 def _k2_launch(t: StencilTables, u):
-    """One K2 launch on a CUDA u: stencil27_plain's contract."""
-    nx, ny, nz = t.shape
-    _check(u.dim() == 1 and u.shape[0] == nx * ny * nz * 3
-           and u.is_contiguous(), "u must be a contiguous ({},) vector, got "
-           "{}", nx * ny * nz * 3, tuple(u.shape))
+    """One K2 launch on a CUDA u: stencil27_plain's contract on a 3D grid,
+    stencil9_plain's on a 2D one (its own entry point and launch count)."""
+    pdim = len(t.shape)
+    n = int(np.prod(t.shape)) * pdim
+    _check(u.dim() == 1 and u.shape[0] == n and u.is_contiguous(),
+           "u must be a contiguous ({},) vector, got {}", n, tuple(u.shape))
     _check(t.coef.dtype == u.dtype == t.interior.dtype
            and t.coef.get_device() == u.get_device()
            and not t.interior.is_cuda,
            "the tables must match u's dtype and device")
     out = torch.empty_like(u)
-    _launch("stencil_matvec", u, t.interior.data_ptr(), t.coef.data_ptr(),
-            u.data_ptr(), out.data_ptr(), nx, ny, nz)
+    if pdim == 3:
+        _launch("stencil_matvec", u, t.interior.data_ptr(), t.coef.data_ptr(),
+                u.data_ptr(), out.data_ptr(), *t.shape)
+    else:
+        _launch("stencil_matvec2d", u, t.interior.data_ptr(),
+                t.coef.data_ptr(), u.data_ptr(), out.data_ptr(), *t.shape,
+                key="stencil_matvec_2d")
     return out
 
 
@@ -395,12 +442,13 @@ class _StencilMatvec(torch.autograd.Function):
 
 
 def stencil_matvec(t: StencilTables, u):
-    """K2 wrapper for 3D node grids: same contract as stencil27_plain. On a
-    CUDA u that requires grad it is differentiable in u (_StencilMatvec);
-    the solver loops, which take no gradient, launch K2 directly."""
+    """K2 wrapper for 3D and 2D node grids: same contract as stencil27_plain
+    or stencil9_plain (by len(t.shape)). On a CUDA u that requires grad it
+    is differentiable in u (_StencilMatvec); the solver loops, which take no
+    gradient, launch K2 directly."""
     if not u.is_cuda:
         _check(u.device.type == "cpu", "unsupported device {}", u.device)
-        return stencil27_plain(t, u)
+        return _collapsed_plain(t, u)
     if u.requires_grad and torch.is_grad_enabled():
         return _StencilMatvec.apply(t, u)
     return _k2_launch(t, u)

@@ -8,12 +8,10 @@ materials use the linearity of k_e in the Lame parameters:
 k_e = lam_e K_lam + mu_e K_mu.
 
 One schedule per operator kind:
-  - 3D, scalar material: cuda_kernels.stencil_matvec (kernel K2, the
-    collapsed 27-point stencil with exact boundary classes, on CUDA tensors;
-    on CPU tensors its plain form) on tables built once per operator;
-  - 2D, scalar material: the per-corner masked form of fem_tpu's
-    _planes_core (cuda_kernels.stencil_matvec_plain), in torch on every
-    device;
+  - scalar material, 3D or 2D: cuda_kernels.stencil_matvec (kernel K2, the
+    collapsed 27-point or 9-point stencil with exact boundary classes, on
+    CUDA tensors; on CPU tensors its plain form) on tables built once per
+    operator;
   - per-cell lam/mu fields: the cell form (corner gather, two products with
     K_lam and K_mu, corner scatter-add), in torch on every device.
 """
@@ -41,9 +39,10 @@ class StencilOperator:
 
     k_lam/k_mu: (ndof_e, ndof_e) reference stiffness split by Lame parameter.
     lam/mu: 0-dim tensors, or (*cells,) fields for heterogeneous material.
-    shape: node-grid shape (nnx, nny[, nnz]).
+    shape: node-grid shape, (nnx, nny, nnz) in 3D and (nny, nnx) in 2D
+    (y-major, as meshgen and make_example number the nodes).
     Derived once, here and in every dataclasses.replace copy, for scalar
-    materials: k_ref = lam * k_lam + mu * k_mu, and in 3D K2's tables.
+    materials: k_ref = lam * k_lam + mu * k_mu and K2's tables.
     """
 
     k_lam: torch.Tensor
@@ -59,8 +58,7 @@ class StencilOperator:
         k_ref = tables = None
         if self.lam.dim() == 0:
             k_ref = self.lam * self.k_lam + self.mu * self.k_mu
-            if len(self.shape) == 3:
-                tables = cuda_kernels.stencil_tables(k_ref, self.shape)
+            tables = cuda_kernels.stencil_tables(k_ref, self.shape)
         object.__setattr__(self, "k_ref", k_ref)
         object.__setattr__(self, "tables", tables)
 
@@ -212,9 +210,7 @@ def matvec(op: StencilOperator, u):
     """K @ u for a flat (ndof,) vector."""
     if op.lam.dim() != 0:
         return _cell_form(op, u.reshape(*op.shape, op.pdim)).reshape(-1)
-    if op.pdim == 3:
-        return cuda_kernels.stencil_matvec(op.tables, u)
-    return cuda_kernels.stencil_matvec_plain(op.k_ref, u, op.shape)
+    return cuda_kernels.stencil_matvec(op.tables, u)
 
 
 def matvec_g(op: StencilOperator, g):
@@ -275,7 +271,7 @@ def fields_to_blocks(op: StencilOperator, nd: int):
 def shard_slabs(op: StencilOperator, mesh: mesh_mod.DeviceMesh) -> SlabStencil:
     """Cut op into one cell slab per shard (a slab of no cells, one node
     plane, where there are more shards than cells). A scalar-material slab
-    keeps the scalar, so in 3D its apply is K2 on the slab's own tables."""
+    keeps the scalar, so its apply is K2 on the slab's own tables."""
     bounds = mesh_mod.slab_bounds(op.shape[0] - 1, mesh.size)
     fields = fields_to_blocks(op, mesh.size)
     if fields is None:

@@ -105,5 +105,6 @@ def test_structured_box_matches_fem_tpu_mg_cg():
     # CPU tensors never launch a kernel
     assert cuda_kernels.launches == {"hex8_stiffness": 0,
                                      "hex8_stiffness_coord_grad": 0,
-                                     "stencil_matvec": 0, "csr_matvec": 0,
+                                     "stencil_matvec": 0,
+                                     "stencil_matvec_2d": 0, "csr_matvec": 0,
                                      "csr_data_grad": 0}

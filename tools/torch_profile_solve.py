@@ -4,6 +4,7 @@
     python tools/torch_profile_solve.py --amg [--n 55] [--reps 1]
     python tools/torch_profile_solve.py --coh [--n 360] [--reps 1]
     python tools/torch_profile_solve.py --creep [--n 80] [--reps 3]
+    python tools/torch_profile_solve.py --quad [--n 1024] [--reps 1]
 
 Default: the structured MG-CG path of stepper.run on the n^3-cell hex8 box
 (n = 80: 1,594,323 DOFs). With --amg: the unstructured path's SA-AMG branch
@@ -21,16 +22,20 @@ expn 1), split into the creep moduli (D_eff = (S + dt beta')^-1, the batched
 6x6 inverses), the RHS with the creep force, the solve, the creep stress
 update and its nodal average; each timed pass rebuilds the set-up, so it
 starts from a zero creep state (the work does not depend on the state's
-values). float64 throughout, on the CUDA card.
+values). With --quad: the structured MG-CG path on the clamped 2D
+cantilever meshgen.quad_grid_problem(2n, n, lx=2, ly=1) with a tip force
+(n = 1024: 2,097,152 quads, 4,200,450 DOFs), and the wall of a whole
+stepper.run of it. float64 throughout, on the CUDA card.
 
 Each phase is timed on the host clock around a synchronize, after one
 warm-up pass that builds the kernels. Every phase then runs once more under
 torch.profiler for its device time; for the solve the kernels per CG
-iteration, the device-busy share and the table of device time by kernel are
-printed, and with --trace the solve's Chrome trace is written to PATH. With
---creep a whole step is profiled once more: its device-busy share, its top
-device ops, and the device time of the batched inverses and of the creep
-force's scatter.
+iteration, the host-side stream synchronizations and host-to-device copies
+per CG iteration, the device-busy share and the table of device time by
+kernel are printed, and with --trace the solve's Chrome trace is written to
+PATH. With --creep a whole step is profiled once more: its device-busy
+share, its top device ops, and the device time of the batched inverses and
+of the creep force's scatter.
 """
 
 import argparse
@@ -76,8 +81,8 @@ def event_ms(fn, reps=20):
 
 
 def device_profile(fn):
-    """Run fn under torch.profiler: (wall s, device-busy ms, kernel count,
-    the profiler's key averages)."""
+    """Run fn under torch.profiler: (wall s, device-busy ms, count of device
+    events (kernels and copies), the profiler's key averages)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -91,9 +96,32 @@ def device_profile(fn):
     return wall, dev_ms, sum(e.count for e in dev_rows), prof
 
 
-def structured_phases(n, dev, config, log):
-    problem = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0)
-    print(f"structured MG-CG: {n}^3 cells, {problem.ndof} DOFs, float64")
+def host_syncs(prof):
+    """Counts of the CUDA runtime calls that stop the host (stream and
+    device synchronizations), of the device's copies and sets, and of the
+    host-to-device copies among them, from the profiler's host-side and
+    device-side rows."""
+    counts = {"synchronize": 0, "memcpy HtoD": 0, "copies": 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key.startswith(("Memcpy", "Memset")):
+                counts["copies"] += e.count
+            if e.key.startswith("Memcpy HtoD"):
+                counts["memcpy HtoD"] += e.count
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            counts["synchronize"] += e.count
+    return counts
+
+
+def structured_phases(n, dev, config, log, quad=False):
+    if quad:
+        problem = meshgen.quad_grid_problem(2 * n, n, lx=2.0, ly=1.0,
+                                            tip_force=(0.0, -1e6))
+        print(f"structured MG-CG: {2 * n} x {n} quads, {problem.ndof} DOFs, "
+              f"float64")
+    else:
+        problem = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0)
+        print(f"structured MG-CG: {n}^3 cells, {problem.ndof} DOFs, float64")
     st = {}
     return problem, [
         ("detect", lambda: st.update(spec=structured.detect(problem))),
@@ -228,17 +256,22 @@ def main():
                     help="the cohesive Newton path on the benchmark strip")
     ap.add_argument("--creep", action="store_true",
                     help="one viscoelastic step of the structured box")
+    ap.add_argument("--quad", action="store_true",
+                    help="the structured path on the 2n x n quad cantilever")
     ap.add_argument("--n", type=int, default=None,
                     help="cells per axis (default 80, 55 with --amg, 360 "
-                         "along the strip with --coh)")
+                         "along the strip with --coh, 1024 across the quad "
+                         "cantilever with --quad)")
     ap.add_argument("--reps", type=int, default=None,
-                    help="timed passes (default 3, or 1 with --amg)")
+                    help="timed passes (default 3, or 1 with --amg, --coh "
+                         "or --quad)")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    n = args.n or (55 if args.amg else 360 if args.coh else 80)
-    reps = args.reps or (1 if args.amg or args.coh else 3)
+    n = args.n or (55 if args.amg else 360 if args.coh else 1024 if
+                   args.quad else 80)
+    reps = args.reps or (1 if args.amg or args.coh or args.quad else 3)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
@@ -255,9 +288,12 @@ def main():
         problem, setup, st, step = creep_phases(n, dev, config, msgs.append)
         step = [(name, fn or solve) for name, fn in step]
     else:
-        problem, setup, st = (amg_phases if args.amg else coh_phases
-                              if args.coh else structured_phases)(
-            n, dev, config, msgs.append)
+        if args.amg or args.coh:
+            problem, setup, st = (amg_phases if args.amg else coh_phases)(
+                n, dev, config, msgs.append)
+        else:
+            problem, setup, st = structured_phases(n, dev, config,
+                                                   msgs.append, args.quad)
         step = [
             ("rhs", lambda: st.update(F=st["system"].rhs(0.0))),
             ("solve", solve),
@@ -294,9 +330,17 @@ def main():
         print(f"  {name:20s} host median {statistics.median(v) * 1e3:10.2f} ms"
               f"  device {device_ms[name]:9.2f} ms  runs "
               f"{[round(x * 1e3, 2) for x in v]}")
+    syncs = host_syncs(prof)
     print(f"profiled solve: wall {wall * 1e3:.2f} ms, device busy "
           f"{dev_ms:.2f} ms ({100 * dev_ms / 1e3 / wall:.1f}%), {kernels} "
-          f"kernels, {kernels / max(iters, 1):.1f} per CG iteration")
+          f"device events, {kernels / max(iters, 1):.1f} per CG iteration "
+          f"({kernels - syncs['copies']} kernels, "
+          f"{(kernels - syncs['copies']) / max(iters, 1):.1f} per CG "
+          f"iteration); "
+          f"stream synchronizations {syncs['synchronize']} "
+          f"({syncs['synchronize'] / max(iters, 1):.1f} per CG iteration), "
+          f"host-to-device copies {syncs['memcpy HtoD']} "
+          f"({syncs['memcpy HtoD'] / max(iters, 1):.1f} per CG iteration)")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15, max_name_column_width=60))
     if args.amg:
@@ -306,6 +350,12 @@ def main():
         creep_step_profile(phases)
         print(f"peak device memory of the profiled step "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if args.quad:
+        cuda_kernels.reset_launches()
+        res, t = sync_time(lambda: stepper.run(problem, config))
+        print(f"stepper.run: wall {t:.3f} s, path {res.path}, MG-CG "
+              f"iterations {res.krylov_iters}, launches "
+              f"{dict(cuda_kernels.launches)}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)

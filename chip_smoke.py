@@ -179,7 +179,22 @@ Phases, each of which exits non-zero when it fails:
      (1e-12) with 4 and 3 shards, one 2D launch per slab; stepper.run with
      n_devices=4 and 3 through sharded_slab_stencil: phase 28's iterations
      +-1, u to 1e-9, residual <= 1e-8, the 2D kernel once per slab per fine
-     K.u.
+     K.u;
+ 31. plane stress on the stencil rows: phase 28's box with
+     Config(plane_stress=True) through stepper.run and structured_mg_cg:
+     MG-CG iterations, the 2D kernel's launches by MG level, no call of
+     stencil_matvec_plain, and the true relative residual (<= 1e-8) with K
+     applied by operator.build of the plane-stress System (the fused
+     operator, which shares no code with the stencil); the stencil that
+     structured.operator_for builds against that operator (1e-12), the
+     residual the plane-strain stencil reads of the same u (> 1e-4: the
+     check tells the two apart), the tip deflection beside phase 28's; the
+     same box with n_devices=4 through sharded_slab_stencil: iterations
+     +-1, u to 1e-9; the 3D decks of tests/test_3d_decks.py (a hex face
+     traction, a tet point force, traction on a hex and a tet face at once;
+     read from that file with ast) through stepper.run on cuda against cpu,
+     direct and cg: the same path and iterations, u and stress to 1e-10
+     (direct) and 1e-8 (Jacobi-CG, stopped at rtol 1e-9), K1 launched.
 Each kernel's "launches" in the summary is the count of its main path's
 run ("launches_path": the 80^3 elastic run for K1 and K2, phase 28's quad
 box for K2's 2D branch, the 55^3 SA-AMG run for K3); "launches_by_path"
@@ -324,15 +339,10 @@ def structured_box(torch, dev, problem):
     from fem_tpu_torch.models.system import System
     from fem_tpu_torch.ops import cuda_kernels as ck
     from fem_tpu_torch.ops import structured
-    from fem_tpu_torch.ops.stiffness import lame
     from fem_tpu_torch.solver import cg
 
     system = System(problem, torch.float64, device=dev)
-    spec = structured.detect(problem)
-    lam, mu = lame(torch.tensor(spec["E"], dtype=torch.float64),
-                   torch.tensor(spec["nu"], dtype=torch.float64))
-    op = structured.build(spec["cell_sizes"], spec["node_shape"], lam, mu,
-                          dtype=torch.float64, device=dev)
+    op = structured.operator_for(system, structured.detect(problem))
     k_ref = op.k_ref.contiguous()
 
     def plain_k(v):
@@ -2156,6 +2166,189 @@ def phase30_slab_2d(torch, dev, problem, op, true_rel_of, res28):
     return launches[4], launches[3]
 
 
+def deck_constants(names):
+    """The deck texts named `names` in tests/test_3d_decks.py, read with ast
+    (that file imports the JAX package; this script imports nothing of
+    it)."""
+    import ast
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / (
+        "test_3d_decks.py")
+    decks = {target.id: ast.literal_eval(node.value)
+             for node in ast.parse(path.read_text()).body
+             if isinstance(node, ast.Assign)
+             for target in node.targets
+             if isinstance(target, ast.Name) and target.id in names}
+    check(set(decks) == set(names), f"decks missing from {path}")
+    return decks
+
+
+def phase31_plane_stress(torch, dev, res28):
+    """Phase 31: phase 28's quad box under plane stress through stepper.run,
+    its true residual against the plane-stress System's K applied by the
+    fused operator; the same with 4 slab shards; the 3D decks of
+    tests/test_3d_decks.py on cuda against cpu. Returns the launches of the
+    three runs."""
+    import os
+
+    import numpy as np
+
+    from fem_tpu_torch.config import Config
+    from fem_tpu_torch.io import meshgen
+    from fem_tpu_torch.models import problem as problem_mod
+    from fem_tpu_torch.models.system import System
+    from fem_tpu_torch.ops import cuda_kernels as ck
+    from fem_tpu_torch.ops import operator, structured
+    from fem_tpu_torch.parallel import mesh as mesh_mod
+    from fem_tpu_torch.solver import cg, stepper
+
+    problem = meshgen.quad_grid_problem(**QUAD_BOX)
+    k2_by_grid, restore_k2 = tally_k2(ck, lambda t, u: t.shape)
+    plain, calls = ck.stencil_matvec_plain, []
+
+    def counted_plain(*args):
+        calls.append(1)
+        return plain(*args)
+
+    ck.stencil_matvec_plain = counted_plain
+    msgs = []
+    ck.reset_launches()
+    try:
+        res, wall = sync_wall(torch, lambda: stepper.run(
+            problem, Config(device="cuda", plane_stress=True, timing=True),
+            log=msgs.append))
+    finally:
+        restore_k2()
+        ck.stencil_matvec_plain = plain
+    launches = dict(ck.launches)
+    for m in msgs:
+        if "Interval" not in m:
+            print(f"  stepper: {m.strip()}")
+    check(res.path == "structured_mg_cg",
+          f"the plane-stress quad box took {res.path}")
+    check(not calls, f"stencil_matvec_plain ran {len(calls)} times in the "
+                     f"plane-stress run")
+    check(launches["stencil_matvec_2d"] > 0
+          and launches["stencil_matvec_2d"] == sum(k2_by_grid.values())
+          and launches["stencil_matvec"] == 0,
+          f"the plane-stress box's K.u did not all go through the 2D "
+          f"kernel: {launches}, by grid {k2_by_grid}")
+    check(bool(np.isfinite(res.aggregate_u).all())
+          and res.aggregate_stress.shape == (problem.nnds, 3)
+          and bool(np.isfinite(res.aggregate_stress).all()),
+          "plane-stress quad box: solution or stress not finite / wrong "
+          "shape")
+
+    # K of the plane-stress System, applied by the fused operator (gather,
+    # products, index_add_), which takes its material from System and
+    # shares no code with the stencil
+    system = System(problem, torch.float64, device=dev, plane_stress=True)
+    fused = operator.build(system)
+    mask = torch.zeros(problem.ndof, dtype=torch.bool, device=dev)
+    mask[system.bc_dofs] = True
+    F = system.rhs(0.0)
+
+    def fused_k(v):
+        return operator.matvec(fused, v)
+
+    def true_rel_of(u):
+        b = cg.constrained_rhs(fused_k, F, mask, torch.zeros_like(u))
+        r = b - cg.masked_operator(fused_k, mask)(u)
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b))
+
+    u = torch.as_tensor(res.aggregate_u, device=dev)
+    true_rel = true_rel_of(u)
+    # the stencil the stepper builds against the fused operator on one
+    # vector, and the residual that the plane-strain stencil reads of this u
+    # (the parent's fault: CG converged on that K)
+    op = structured.operator_for(system, structured.detect(problem))
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal(op.ndof),
+                        device=dev)
+    k_err = rel_max(structured.matvec(op, v), fused_k(v))
+    del op
+    strain_rel = structured_box(torch, dev, problem)[2](F, u)
+    tip = float(u.reshape(-1, 2)[:, 1].min())
+    tip28 = float(res28.aggregate_u.reshape(-1, 2)[:, 1].min())
+    timers = {k: round(v, 4) for k, v in res.timers.totals.items()}
+    print(f"plane-stress quad box {QUAD_BOX['nx']} x {QUAD_BOX['ny']} "
+          f"({problem.ndof} DOFs, float64): path {res.path}, MG-CG "
+          f"iterations {res.krylov_iters} (plane strain {res28.krylov_iters})"
+          f", true rel residual against the fused operator {true_rel:.3e}, "
+          f"stepper.run wall {wall:.3f} s (phases {timers} s), min u_y "
+          f"{tip:.6e} ({tip / tip28:.6f} x plane strain's); 2D kernel "
+          f"launches {launches['stencil_matvec_2d']}, by MG level "
+          f"{k2_by_grid}; stencil_matvec_plain calls in the run "
+          f"{len(calls)}; operator_for's stencil against the fused operator "
+          f"{k_err:.3e}; the plane-strain stencil's residual of this u "
+          f"{strain_rel:.3e}", flush=True)
+    check(true_rel <= 1e-8,
+          f"plane-stress quad box true rel residual {true_rel} > 1e-8")
+    check(k_err <= 1e-12, f"operator_for's stencil != System's K: {k_err}")
+    check(strain_rel > 1e-4, f"the plane-strain stencil also accepts the "
+                             f"plane-stress u ({strain_rel}): the residual "
+                             f"check cannot tell the two apart")
+    check(tip < tip28 < 0.0,
+          "plane stress did not deflect the tip further than plane strain")
+
+    os.environ[mesh_mod.VIRTUAL_ENV] = "4"
+    k2_by_grid, restore_k2 = tally_k2(ck, lambda t, v: t.shape)
+    ck.reset_launches()
+    try:
+        res4, wall4, _, _, solve = traced_run(
+            torch, stepper, problem,
+            Config(device="cuda", plane_stress=True, n_devices=4))
+    finally:
+        restore_k2()
+    launches4 = dict(ck.launches)
+    rel_u = rel_max(res4.aggregate_u, res.aggregate_u)
+    true_rel4 = true_rel_of(torch.as_tensor(res4.aggregate_u, device=dev))
+    ar = [c for c in solve if c[0] == "all_reduce_sum"]
+    print(f"plane-stress quad box, 4 slab shards on 1 card: path "
+          f"{res4.path}, MG-CG iterations {res4.krylov_iters}, max |du| / "
+          f"max |u| against the single-device run {rel_u:.3e} (tol 1e-9), "
+          f"true rel residual {true_rel4:.3e}, {len(ar)} all-reduces in the "
+          f"solve, stepper.run wall {wall4:.2f} s, 2D kernel launches "
+          f"{launches4['stencil_matvec_2d']}, by grid {k2_by_grid}",
+          flush=True)
+    check_run(res4, res, "sharded_slab_stencil", rel_u, true_rel4,
+              "plane-stress quad box, 4 shards")
+    check(all(abs(i - j) <= 1 for i, j in zip(res4.krylov_iters,
+                                              res.krylov_iters)),
+          f"plane-stress sharded MG-CG iterations {res4.krylov_iters} "
+          f"against {res.krylov_iters}")
+    del system, fused, u, v, F
+
+    # the 3D decks: a hex face traction, a tet point force, traction
+    # records on a hex face and a tet face at once. The direct rows agree to
+    # round-off; the Jacobi-CG rows stop at rtol 1e-9, and on the mixed
+    # deck (its tet is inverted: a non-positive Jacobian) two such iterates
+    # differ by a few 1e-10 of max |u|, so they are held to 1e-8, as the
+    # CPU parity test of these decks holds them against fem_tpu
+    decks = deck_constants(("HEX_DECK", "TET_DECK", "MIXED_TRAC_DECK"))
+    ck.reset_launches()
+    for name, text in decks.items():
+        for solver, tol in (("direct", 1e-10), ("cg", 1e-8)):
+            got, ref = (stepper.run(problem_mod.load(text),
+                                    Config(device=d, solver=solver))
+                        for d in ("cuda", "cpu"))
+            d_u = rel_max(got.aggregate_u, ref.aggregate_u)
+            d_s = rel_max(got.aggregate_stress, ref.aggregate_stress)
+            print(f"3D deck {name}, --solver {solver}: cuda against cpu, "
+                  f"paths {got.path} / {ref.path}, iterations "
+                  f"{got.krylov_iters} / {ref.krylov_iters}, max |du| / max "
+                  f"|u| {d_u:.3e}, stress {d_s:.3e} (tol {tol:.0e})",
+                  flush=True)
+            check(got.path == ref.path and got.krylov_iters
+                  == ref.krylov_iters and max(d_u, d_s) <= tol,
+                  f"3D deck {name}, {solver}: cuda != cpu")
+    launches_decks = dict(ck.launches)
+    print(f"3D decks on cuda: launches {launches_decks}", flush=True)
+    check(launches_decks["hex8_stiffness"] > 0,
+          "the hex decks on cuda launched no K1")
+    return launches, launches4, launches_decks
+
+
 def main():
     import torch
 
@@ -2897,7 +3090,12 @@ def main():
     # 30. the 2D slab-sharded row, 4 and 3 shards on this card
     launches_slab2d4, launches_slab2d3 = phase30_slab_2d(
         torch, dev, quad, quad_op, quad_rel, res28)
-    del res28, quad, quad_op, quad_rel
+    del quad, quad_op, quad_rel
+    stamp("phase 31: plane stress on the stencil rows, the 3D decks")
+    # 31. phase 28's box under plane stress, 1 and 4 shards; the 3D decks
+    launches_ps, launches_ps4, launches_decks = phase31_plane_stress(
+        torch, dev, res28)
+    del res28
 
     summary["csr_matvec"] = k3_real
     # each path's own launches, each counted from 0 just before its run
@@ -2916,7 +3114,10 @@ def main():
             "sharded_halo_gather_55": launches_halo_gather,
             "quad_box_2d": launches_quad, "quad_strip_cli": launches_strip2d,
             "sharded_slab_quad_2d": launches_slab2d4,
-            "sharded_slab_quad_2d_3shards": launches_slab2d3}
+            "sharded_slab_quad_2d_3shards": launches_slab2d3,
+            "quad_box_2d_plane_stress": launches_ps,
+            "sharded_slab_quad_2d_plane_stress": launches_ps4,
+            "decks_3d": launches_decks}
     # "launches" is the count of the kernel's main path: the 80^3 elastic
     # run for K1 and K2, the 2D quad box's run for K2's 2D branch, the 55^3
     # SA-AMG run for K3, the 6^3 compliance gradient in the coordinates for

@@ -183,6 +183,20 @@ def detect(problem):
                 nu=float(nu))
 
 
+def operator_for(system, spec) -> StencilOperator:
+    """The stencil operator of a box that `detect` accepted, built from the
+    material of the System's single block and not from spec["E"] /
+    spec["nu"] (the deck's): System has made the plane-stress substitution
+    there (pdim 2 only), so the stencil's K is the one its right-hand side
+    and stress recovery assume."""
+    (block,) = system.blocks.values()
+    E, nu = (torch.tensor(float(block[k][0]), dtype=system.dtype)
+             for k in ("E", "nu"))
+    lam, mu = stiff_ops.lame(E, nu)
+    return build(spec["cell_sizes"], spec["node_shape"], lam, mu,
+                 dtype=system.dtype, device=system.device)
+
+
 def _corner_slices(shape, off):
     """Slice of the node grid selecting each element's `off` corner."""
     return tuple(slice(o, o + n - 1) for o, n in zip(off, shape))

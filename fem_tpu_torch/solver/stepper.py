@@ -54,7 +54,6 @@ from fem_tpu_torch.config import Config
 from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.models.system import PENALTY, System
 from fem_tpu_torch.ops import blockstencil, structured
-from fem_tpu_torch.ops.stiffness import lame
 from fem_tpu_torch.parallel import halo_gather
 from fem_tpu_torch.parallel import mesh as mesh_mod
 from fem_tpu_torch.parallel.ops import ShardedOperator
@@ -181,10 +180,7 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     the dtype, so the split does not pay here and no row takes it."""
     log("    Structured grid detected: stencil + multigrid path")
     dtype, dev = system.dtype, system.device
-    lam, mu = lame(torch.tensor(spec["E"], dtype=dtype),
-                   torch.tensor(spec["nu"], dtype=dtype))
-    op = structured.build(spec["cell_sizes"], spec["node_shape"], lam, mu,
-                          dtype=dtype, device=dev)
+    op = structured.operator_for(system, spec)
     hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
     if config.n_devices and config.n_devices > 1:
         # fem_tpu's stepper.py:380-446: the CG's K.u and the V-cycle's fine

@@ -87,7 +87,7 @@ def test_constraint_equations_rejected_like_fem_tpu():
         inp.parse(bad)
 
 
-def test_native_parser_not_ported():
+def test_native_parser_matches_python():
     """The native parser, once unported (ROADMAP A.8), now parses like the
     Python one, field for field."""
     assert native.available()
@@ -168,10 +168,10 @@ def test_import_leaves_jax_out():
     (dict(checkpoint_dir="ckpt"), "A.8"),
     (dict(profile_dir="trace"), "A.8"),
 ])
-def test_config_unported_options_raise(kw, item):
+def test_config_keeps_ported_options(kw, item):
     """The A.8 options and n_devices > 1 (A.9's element-sharded tier) are
-    ported: accepted and kept. The A.9 tiers still to come raise from the
-    stepper's path table (tests/test_torch_parallel.py)."""
+    ported: accepted and kept. The later A.9 tiers are ported too, and no
+    row of the stepper's path table raises (tests/test_torch_parallel.py)."""
     c = Config(device="cpu", **kw)
     for key, value in kw.items():
         assert getattr(c, key) == value

@@ -85,7 +85,7 @@ def test_direct_helpers_match_fem_tpu():
         assert (e, n) == (je, jn) and abs(m - jm) <= 1e-12
 
 
-def test_cohesive_terms_not_ported():
+def test_cohesive_terms_exist_and_balance():
     """Once unported (ROADMAP A.7), the cohesive terms now exist: a deck
     without a cohesive block has none, and on cohesive_test_2 a closed
     interface carries no force while an opened one carries forces that act
@@ -158,7 +158,7 @@ def test_path_table_rows():
         "explicit"}
 
 
-def test_unported_rows_raise_from_run():
+def test_no_row_raises_from_run():
     # the cohesive row (ROADMAP A.7) runs, and so does creep (A.8): el_test
     # has one step from a zero creep state, so its creep force is zero and
     # u is the elastic run's; its material (visc 1e18) barely relaxes

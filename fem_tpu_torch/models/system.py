@@ -38,6 +38,7 @@ from fem_tpu_torch.models.problem import Problem
 from fem_tpu_torch.ops import cohesive as coh_ops
 from fem_tpu_torch.ops import dmat as dmat_ops
 from fem_tpu_torch.ops import stiffness as stiff_ops
+from fem_tpu_torch.utils import timing
 
 PENALTY = 1.0e30  # PENALTY_PARAM (m_global.F90:15)
 
@@ -119,8 +120,8 @@ class System:
         self.t_total = float(p.t)
 
     def _t(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
-                               device=self.device)
+        return timing.upload(np.asarray(a), dtype=dtype or self.dtype,
+                             device=self.device)
 
     # ---------------- elastic operator ----------------
 
@@ -175,8 +176,8 @@ class System:
         by default. BC forcing is NOT included here; solvers apply it per
         bc_mode.
         """
-        t_init = torch.as_tensor(t_init, dtype=self.dtype, device=self.device)
-        t_end = (t_init + self.dt if t_end is None else torch.as_tensor(
+        t_init = timing.upload(t_init, dtype=self.dtype, device=self.device)
+        t_end = (t_init + self.dt if t_end is None else timing.upload(
             t_end, dtype=self.dtype, device=self.device))
         F = torch.zeros(self.ndof, dtype=self.dtype, device=self.device)
         if self.force_dofs.shape[0]:

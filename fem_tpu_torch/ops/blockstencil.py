@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from fem_tpu_torch.parallel import mesh as mesh_mod
+from fem_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +133,7 @@ def build(A, pdim: int, dims: Tuple[int, ...], *, dtype=torch.float64,
     vals = np.zeros((nnds, pdim, noffs * pdim))
     vals[Ac.row // pdim, Ac.row % pdim, off * pdim + Ac.col % pdim] = Ac.data
     return BlockStencilOperator(
-        vals=torch.as_tensor(vals, dtype=dtype, device=device),
+        vals=timing.upload(vals, dtype=dtype, device=device),
         dims=tuple(int(d) for d in dims), pdim=int(pdim))
 
 

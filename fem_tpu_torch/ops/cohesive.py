@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops.elements import get as get_element
+from fem_tpu_torch.utils import timing
 
 _COH = get_element("coh")
 # Pairing sign per node: urel = sum_a sign[a] * N[ip,a] * u[a] reproduces
@@ -45,7 +46,7 @@ _FORCE_SIGN = np.array([1.0, 1.0, -1.0, -1.0])
 
 
 def _const(a, like):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return timing.upload(a, dtype=like.dtype, device=like.device)
 
 
 def geometry(ecoords):

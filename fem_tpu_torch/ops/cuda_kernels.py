@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from fem_tpu_torch import kernels_build
 from fem_tpu_torch.ops import elements
+from fem_tpu_torch.utils import timing
 
 # Grid-index corner offsets matching the element node ordering of meshgen's
 # builders (fem_tpu/ops/structured.py:47-52). 3D: nodes numbered z-fastest,
@@ -336,7 +337,7 @@ def stencil_tables(k_ref, shape) -> StencilTables:
                 o = 3 * o + y - x + 1
             coef[:, o] += m[:, None, None] * k[a, :, b, :]
     coef = coef.to(k_ref.dtype)
-    return StencilTables(coef=coef.to(k_ref.device),
+    return StencilTables(coef=timing.upload(coef, device=k_ref.device),
                          interior=coef[nc // 2].reshape(-1).contiguous(),
                          shape=shape)
 

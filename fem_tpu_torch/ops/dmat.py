@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from fem_tpu_torch.utils import timing
+
 
 def dmat2d(E, nu):
     """Plane-strain isotropic 3x3 D matrix (m_local.F90:212-218).
@@ -101,7 +103,7 @@ def creep_beta3d(stress, visc, expn):
 
     stress: (..., 6) in the order (xx, yy, zz, xy, yz, zx); returns (..., 6).
     """
-    cmat = torch.tensor(_C3D, dtype=stress.dtype, device=stress.device)
+    cmat = timing.upload(_C3D, dtype=stress.dtype, device=stress.device)
     return (_creep_scale(_kappa3d(stress), visc, expn)[..., None]
             * torch.einsum("ij,...j->...i", cmat, stress))
 
@@ -137,14 +139,14 @@ def creep_betad3d(stress, visc, expn):
     kappa = _kappa3d(stress)
     zero = kappa == 0.0
     safe = torch.where(zero, torch.ones_like(kappa), kappa)
-    c = torch.sqrt(torch.as_tensor(expn - 1.0, dtype=stress.dtype,
-                                   device=stress.device))
+    c = torch.sqrt(timing.upload(expn - 1.0, dtype=stress.dtype,
+                                 device=stress.device))
     v = torch.stack([c * (2.0 * s1 - s2 - s3) / (3.0 * safe),
                      c * (2.0 * s2 - s3 - s1) / (3.0 * safe),
                      c * (2.0 * s3 - s1 - s2) / (3.0 * safe),
                      c * 2.0 * s4 / safe, c * 2.0 * s5 / safe,
                      c * 2.0 * s6 / safe], dim=-1)
-    cmat = torch.tensor(_C3D, dtype=stress.dtype, device=stress.device)
+    cmat = timing.upload(_C3D, dtype=stress.dtype, device=stress.device)
     rows = cmat + v[..., :, None] * v[..., None, :]
     out = _creep_scale(safe, visc, expn)[..., None, None] * rows
     return out.masked_fill(zero[..., None, None], 0.0)

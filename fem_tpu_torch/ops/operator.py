@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from fem_tpu_torch.ops import stiffness as stiff_ops
+from fem_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +53,8 @@ def build(system) -> FusedOperator:
         et = e["et"]
         dNx, detj = stiff_ops.grad_and_detj(et, e["ecoords"])
         ne, nip = detj.shape
-        scale = detj * torch.as_tensor(et.weights, dtype=detj.dtype,
-                                       device=detj.device)[None, :]
+        scale = detj * timing.upload(et.weights, dtype=detj.dtype,
+                                      device=detj.device)[None, :]
         lam, mu = stiff_ops.lame(e["E"], e["nu"])
         blocks.append(FusedBlock(
             conn=e["conn"],

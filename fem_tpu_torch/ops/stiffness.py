@@ -22,11 +22,11 @@ import torch
 
 from fem_tpu_torch.ops import cuda_kernels
 from fem_tpu_torch.ops.elements import ElementType
-from fem_tpu_torch.utils import smallmat
+from fem_tpu_torch.utils import smallmat, timing
 
 
 def _table(a, like):
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return timing.upload(a, dtype=like.dtype, device=like.device)
 
 
 def grad_and_detj(et: ElementType, ecoords):

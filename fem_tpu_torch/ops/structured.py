@@ -29,6 +29,7 @@ from fem_tpu_torch.ops import elements as element_lib
 from fem_tpu_torch.ops import stiffness as stiff_ops
 from fem_tpu_torch.ops.cuda_kernels import HEX_OFFSETS, QUAD_OFFSETS
 from fem_tpu_torch.parallel import mesh as mesh_mod
+from fem_tpu_torch.utils import timing
 
 _QUAD_CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))  # (x, y) per node 1..4
 
@@ -92,19 +93,19 @@ def build(cell_sizes, node_shape, lam, mu, *, dtype=torch.float64,
     pdim = len(node_shape)
     et = element_lib.get("hex" if pdim == 3 else "qua")
     corners = np.array(HEX_OFFSETS if pdim == 3 else _QUAD_CORNERS, dtype=float)
-    ec = torch.as_tensor(corners * np.asarray(cell_sizes), dtype=dtype,
-                         device=device)
+    ec = timing.upload(corners * np.asarray(cell_sizes), dtype=dtype,
+                       device=device)
     ecoords = torch.stack([ec, ec])
     ke = stiff_ops.element_stiffness_lame(
         et, ecoords,
-        torch.tensor([1.0, 0.0], dtype=dtype, device=device),
-        torch.tensor([0.0, 1.0], dtype=dtype, device=device),
+        timing.upload([1.0, 0.0], dtype=dtype, device=device),
+        timing.upload([0.0, 1.0], dtype=dtype, device=device),
     )
     return StencilOperator(
         k_lam=ke[0].contiguous(),
         k_mu=ke[1].contiguous(),
-        lam=torch.as_tensor(lam, dtype=dtype, device=device),
-        mu=torch.as_tensor(mu, dtype=dtype, device=device),
+        lam=timing.upload(lam, dtype=dtype, device=device),
+        mu=timing.upload(mu, dtype=dtype, device=device),
         shape=tuple(int(n) for n in node_shape),
     )
 

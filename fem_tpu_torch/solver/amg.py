@@ -37,6 +37,7 @@ import torch
 
 from fem_tpu_torch.ops import cuda_kernels
 from fem_tpu_torch.ops import stiffness as stiff_ops
+from fem_tpu_torch.utils import timing
 
 MAX_LEVELS = 10
 CHEBYSHEV_DEGREE = 3
@@ -273,7 +274,7 @@ def _dense_inv(Kc, device, dtype=torch.float64):
     """Dense inverse of the coarsest SPD operator: Cholesky + cholesky_inverse
     in float64 on `device`, returned in `dtype` there. Raises when K is not
     positive definite (there is no fallback)."""
-    K = torch.as_tensor(Kc, dtype=torch.float64, device=device)
+    K = timing.upload(Kc, dtype=torch.float64, device=device)
     L, info = torch.linalg.cholesky_ex(K)
     if int(info) != 0:
         raise RuntimeError(
@@ -308,9 +309,9 @@ class Csr:
     def from_csr(cls, A, dtype, device) -> "Csr":
         """From a scipy sparse matrix."""
         A = A.tocsr()
-        return cls(torch.as_tensor(A.indptr, dtype=torch.int64, device=device),
-                   torch.as_tensor(A.indices, dtype=torch.int32, device=device),
-                   torch.as_tensor(A.data, dtype=dtype, device=device),
+        return cls(timing.upload(A.indptr, dtype=torch.int64, device=device),
+                   timing.upload(A.indices, dtype=torch.int32, device=device),
+                   timing.upload(A.data, dtype=dtype, device=device),
                    int(A.shape[1]), cuda_kernels.csr_lanes(A.shape[0], A.nnz))
 
     @property
@@ -402,7 +403,7 @@ def build(
     nnodes = coords.shape[0]
 
     def dev(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return timing.upload(a, dtype=dtype, device=device)
 
     levels: List[AMGLevel] = []
     level_A = A

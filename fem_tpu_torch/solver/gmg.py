@@ -33,6 +33,7 @@ import torch
 from fem_tpu_torch.ops import blockstencil as bs
 from fem_tpu_torch.solver import amg as amg_mod
 from fem_tpu_torch.solver import multigrid as mg_mod
+from fem_tpu_torch.utils import timing
 
 # largest coarsest level the dense inverse takes
 DENSE_COARSE_CAP = 24000
@@ -164,7 +165,7 @@ def build_lattice(
         levels.append(GMGLevel(
             op=(bs.build(cur_A, pdim, cur_dims, dtype=dtype, device=device)
                 if levels else None),
-            dinv_g=torch.as_tensor(dinv, dtype=dtype, device=device).view(
+            dinv_g=timing.upload(dinv, dtype=dtype, device=device).view(
                 *cur_dims, pdim),
             theta=float(0.5 * (lam_max + lb)),
             delta=float(0.5 * (lam_max - lb)),

@@ -24,6 +24,8 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from fem_tpu_torch.utils import timing
+
 
 class GMRESResult(NamedTuple):
     x: torch.Tensor
@@ -98,8 +100,8 @@ def gmres(
             np.fill_diagonal(Rk, np.where(np.abs(dg) > eps, dg, 1.0))
             y = sla.solve_triangular(Rk, g[:k], lower=False)
             basis = torch.stack(V[:k], dim=1)  # (n, k)
-            x = x + precond(basis @ torch.as_tensor(y, dtype=b.dtype,
-                                                    device=b.device))
+            x = x + precond(basis @ timing.upload(y, dtype=b.dtype,
+                                                  device=b.device))
         return x, float(torch.linalg.norm(b - matvec(x))), k
 
     rnorm = float(torch.linalg.norm(b - matvec(x)))

@@ -14,13 +14,13 @@ numbering keeps neighbours, so the lattice is detected on K_el alone.
 
 from __future__ import annotations
 
-import time
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from fem_tpu_torch.ops import blockstencil, operator
 from fem_tpu_torch.solver import amg, gmg
+from fem_tpu_torch.utils import timing
 
 
 class FineAndHierarchy(NamedTuple):
@@ -29,8 +29,9 @@ class FineAndHierarchy(NamedTuple):
     kind: str  # "gmg" | "amg"
     hier: object  # gmg.GMGPrecond | amg.AMGPrecond
     sizes: List[int]  # DOFs per level, fine first
-    t_op: float  # host seconds: detection and the fine operator
-    t_hier: float  # host seconds: the hierarchy
+    # the build's spans: "operator" (detection and the fine operator) and
+    # "hierarchy"
+    spans: Dict[str, timing.Span]
 
     def preconditioner(self, masked_fine: Callable, layout=None) -> Callable:
         mod = gmg if self.kind == "gmg" else amg
@@ -51,29 +52,28 @@ def build(system, A_el, A_hier=None, gmg_min: int = 0,
     pdim, n = system.pdim, system.ndof
     A_hier = A_el if A_hier is None else A_hier
     bc_dofs = system.bc_dofs if bc_dofs is None else bc_dofs
-    t0 = time.perf_counter()
-    dims = blockstencil.detect(A_el, pdim, n // pdim)
-    if fine is None and dims is not None:
-        bop = blockstencil.build(A_el, pdim, dims, dtype=dtype, device=dev)
-        fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
-    elif fine is None:
-        fop = operator.build(system)
-        fine = lambda v: operator.matvec(fop, v)  # noqa: E731
-    t_op = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hier = None
-    if dims is not None and n > gmg_min:
-        hier = gmg.build_lattice(A_hier, pdim, dims, bc_dofs=bc_dofs,
-                                 dtype=dtype, device=dev)
-    if hier is not None:
-        kind = "gmg"
-        sizes = [int(np.prod(lv.dims)) * pdim for lv in hier.levels] + [
-            hier.coarse_inv.shape[0]]
-    else:
-        kind = "amg"
-        hier = amg.build(system, bc_dofs, coarse_max=coarse_max, A=A_hier,
-                         coords=coords)
-        sizes = [n] + [lv.n_coarse for lv in hier.levels[:-1]]
+    with timing.span("operator") as s_op:
+        dims = blockstencil.detect(A_el, pdim, n // pdim)
+        if fine is None and dims is not None:
+            bop = blockstencil.build(A_el, pdim, dims, dtype=dtype, device=dev)
+            fine = lambda v: blockstencil.matvec(bop, v)  # noqa: E731
+        elif fine is None:
+            fop = operator.build(system)
+            fine = lambda v: operator.matvec(fop, v)  # noqa: E731
+    with timing.span("hierarchy") as s_hier:
+        hier = None
+        if dims is not None and n > gmg_min:
+            hier = gmg.build_lattice(A_hier, pdim, dims, bc_dofs=bc_dofs,
+                                     dtype=dtype, device=dev)
+        if hier is not None:
+            kind = "gmg"
+            sizes = [int(np.prod(lv.dims)) * pdim for lv in hier.levels] + [
+                hier.coarse_inv.shape[0]]
+        else:
+            kind = "amg"
+            hier = amg.build(system, bc_dofs, coarse_max=coarse_max,
+                             A=A_hier, coords=coords)
+            sizes = [n] + [lv.n_coarse for lv in hier.levels[:-1]]
     return FineAndHierarchy(fine=fine, dims=dims, kind=kind, hier=hier,
-                            sizes=sizes, t_op=t_op,
-                            t_hier=time.perf_counter() - t0)
+                            sizes=sizes,
+                            spans={"operator": s_op, "hierarchy": s_hier})

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops import structured
+from fem_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +78,8 @@ def _lambda_max_level(op, diag, maskf, iters: int = 15, seed: int = 0):
     The start vector is np.random.default_rng(seed).standard_normal, as in
     fem_tpu, so theta/delta (and the CG iteration counts) match it."""
     rng = np.random.default_rng(seed)
-    x = torch.as_tensor(rng.standard_normal(op.ndof), dtype=op.k_lam.dtype,
-                        device=op.k_lam.device)
+    x = timing.upload(rng.standard_normal(op.ndof), dtype=op.k_lam.dtype,
+                      device=op.k_lam.device)
     x = x / torch.linalg.norm(x)
     keep = 1.0 - maskf
     lam = 1.0
@@ -114,8 +115,8 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
     cur_op = op
     cur_mask_grid = mask_grid
     for _ in range(max_levels):
-        maskf = torch.as_tensor(cur_mask_grid.reshape(-1).astype(np.float64),
-                                dtype=dtype, device=device)
+        maskf = timing.upload(cur_mask_grid.reshape(-1).astype(np.float64),
+                              dtype=dtype, device=device)
         d = structured.diag(cur_op)
         d = d * (1.0 - maskf) + maskf
         theta = delta = 0.0
@@ -154,8 +155,8 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
         K[mask_np, :] = 0.0
         K[:, mask_np] = 0.0
         K[mask_np, mask_np] = 1.0
-        coarse_inv = torch.as_tensor(np.linalg.inv(K), dtype=dtype,
-                                     device=device)
+        coarse_inv = timing.upload(np.linalg.inv(K), dtype=dtype,
+                                   device=device)
     else:
         coarse_inv = torch.zeros((0, 0), dtype=dtype, device=device)
         coarse_smooth = 40

@@ -31,9 +31,9 @@ default; the H100 has native FP64, so there is no float32 inner solve).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +45,7 @@ from fem_tpu_torch.models.system import PENALTY, System
 from fem_tpu_torch.ops import operator
 from fem_tpu_torch.solver import amg, cg, direct, hierarchy
 from fem_tpu_torch.solver import gmres as gmres_mod
+from fem_tpu_torch.utils import timing
 
 
 class NewtonResult(NamedTuple):
@@ -249,30 +250,30 @@ def matfree_operators(system: System, config: Config,
         fop = operator.build(system)
         return MatfreeOperators(el_mv=lambda v: operator.matvec(fop, v),
                                 el_diag=operator.diag(fop))
-    t0 = time.perf_counter()
-    A_el = amg.assemble_csr(system)
-    # tangent at zero opening; its viscous term depends on dt
-    ke0 = system.coh_ke(torch.zeros(n, dtype=system.dtype,
-                                    device=system.device)).cpu().numpy()
-    ed = system.coh["edofs"].cpu().numpy()
-    nde = ed.shape[1]
-    A = A_el + sp.coo_matrix(
-        (ke0.reshape(-1), (np.repeat(ed, nde, axis=1).reshape(-1),
-                           np.tile(ed, (1, nde)).reshape(-1))),
-        shape=A_el.shape).tocsr()
+    with timing.span("assemble") as s_asm:
+        A_el = amg.assemble_csr(system)
+        # tangent at zero opening; its viscous term depends on dt
+        ke0 = system.coh_ke(torch.zeros(n, dtype=system.dtype,
+                                        device=system.device)).cpu().numpy()
+        ed = system.coh["edofs"].cpu().numpy()
+        nde = ed.shape[1]
+        A = A_el + sp.coo_matrix(
+            (ke0.reshape(-1), (np.repeat(ed, nde, axis=1).reshape(-1),
+                               np.tile(ed, (1, nde)).reshape(-1))),
+            shape=A_el.shape).tocsr()
     mg = hierarchy.build(system, A_el, A_hier=A, fine=(
         None if sharded_op is None else sharded_op.matvec))
     if log is not None:
         fine = ("element-sharded fused" if sharded_op is not None
                 else "block stencil" if mg.dims else "fused")
+        wall = s_asm.seconds + sum(s.seconds for s in mg.spans.values())
         log(f"Newton-Krylov set-up: {fine} operator, "
             f"{'lattice GMG' if mg.kind == 'gmg' else 'SA-AMG'} on the "
-            f"zero-opening tangent, level sizes {mg.sizes}, "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"zero-opening tangent, level sizes {mg.sizes}, {wall:.2f} s")
     return MatfreeOperators(
         el_mv=mg.fine, mg=mg,
-        el_diag=torch.as_tensor(A_el.diagonal(), dtype=system.dtype,
-                                device=system.device))
+        el_diag=timing.upload(A_el.diagonal(), dtype=system.dtype,
+                              device=system.device))
 
 
 def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
@@ -366,11 +367,18 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
         return delta, used_gmres, inner
 
     tw = {"inner": 0.0, "linesearch": 0.0, "residual": 0.0}
-    t0 = time.perf_counter()
-    du = pin(du0)
-    R = residual(du)
-    rnorm = _norm(R)
-    tw["residual"] += time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def timed(name):
+        """A span of the run's tree whose seconds this call's log sums."""
+        with timing.span(name) as s:
+            yield
+        tw[name] += s.seconds
+
+    with timed("residual"):
+        du = pin(du0)
+        R = residual(du)
+        rnorm = _norm(R)
     tol = max(config.newton_rtol * rnorm, config.newton_atol)
     log(f"newton: r0={rnorm:.3e} tol={tol:.3e}")
     ew = config.forcing == "ew"
@@ -382,38 +390,37 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
             inner_rtol = min(0.5, max(1e-6, 0.9 * (rnorm / prev_rnorm) ** 2))
         else:
             inner_rtol = 1e-4 if ew else 1e-6
-        t0 = time.perf_counter()
-        mv, abs_diag = jacobian(du)
-        rhs = free(-R)
-        delta, used_gmres, n_inner = inner_solve(mv, abs_diag, rhs,
-                                                 inner_rtol)
-        tw["inner"] += time.perf_counter() - t0
+        with timed("inner"):
+            mv, abs_diag = jacobian(du)
+            rhs = free(-R)
+            delta, used_gmres, n_inner = inner_solve(mv, abs_diag, rhs,
+                                                     inner_rtol)
         inner_total += n_inner
         log(f"newton it {iters}: inner done (rtol {inner_rtol:.1e}, "
             f"iters={n_inner}, gmres={used_gmres})")
-        t0 = time.perf_counter()
-        best = _line_search(residual, pin, du, delta, rnorm, halvings=20)
-        if best is None and not used_gmres and allow_gmres:
-            # the CG direction is useless (indefinite tangent past the
-            # traction peak): retry with a tight GMRES direction
-            g = gmres(mv, rhs, abs_diag, 1e-8)
-            inner_total += g.iters
-            delta = free(g.x)
-            used_gmres = True
-            best = _line_search(residual, pin, du, delta, rnorm, halvings=20)
-        tw["linesearch"] += time.perf_counter() - t0
+        with timed("linesearch"):
+            best = _line_search(residual, pin, du, delta, rnorm,
+                                halvings=20)
+            if best is None and not used_gmres and allow_gmres:
+                # the CG direction is useless (indefinite tangent past the
+                # traction peak): retry with a tight GMRES direction
+                g = gmres(mv, rhs, abs_diag, 1e-8)
+                inner_total += g.iters
+                delta = free(g.x)
+                used_gmres = True
+                best = _line_search(residual, pin, du, delta, rnorm,
+                                    halvings=20)
         if best is None:
             break
         fallbacks += int(used_gmres)
-        t0 = time.perf_counter()
-        lam, du_new, R, r_new = best
-        step_norm = _norm(du_new - du)
-        du = du_new
-        iters += 1
-        prev_rnorm, rnorm = rnorm, r_new
-        converged = rnorm <= tol or step_norm <= config.newton_stol * max(
-            _norm(du), 1e-300)
-        tw["residual"] += time.perf_counter() - t0
+        with timed("residual"):
+            lam, du_new, R, r_new = best
+            step_norm = _norm(du_new - du)
+            du = du_new
+            iters += 1
+            prev_rnorm, rnorm = rnorm, r_new
+            converged = rnorm <= tol or step_norm <= config.newton_stol * max(
+                _norm(du), 1e-300)
         log(f"newton it {iters}: rnorm={rnorm:.3e} lam={lam}")
     log("newton wall: inner %.2fs, linesearch %.2fs, residual %.2fs"
         % (tw["inner"], tw["linesearch"], tw["residual"]))

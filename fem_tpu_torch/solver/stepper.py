@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -58,7 +57,7 @@ from fem_tpu_torch.parallel import halo_gather
 from fem_tpu_torch.parallel import mesh as mesh_mod
 from fem_tpu_torch.parallel.ops import ShardedOperator
 from fem_tpu_torch.solver import amg, cg, direct, hierarchy, multigrid, newton
-from fem_tpu_torch.utils import checkpoint
+from fem_tpu_torch.utils import checkpoint, timing
 from fem_tpu_torch.utils.timing import Timers, device_trace
 
 
@@ -114,7 +113,8 @@ class StepResult:
     newton_iters: List[int] = dataclasses.field(default_factory=list)
     newton_converged: List[bool] = dataclasses.field(default_factory=list)
     gmres_fallbacks: List[int] = dataclasses.field(default_factory=list)
-    # phase wall-clock totals: setup, rhs, solve or newton, stress
+    # phase wall-clock totals (setup, rhs, solve or newton, stress) and the
+    # run's span tree and counters
     timers: Optional[Timers] = None
 
 
@@ -180,8 +180,10 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
     the dtype, so the split does not pay here and no row takes it."""
     log("    Structured grid detected: stencil + multigrid path")
     dtype, dev = system.dtype, system.device
-    op = structured.operator_for(system, spec)
-    hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
+    with timing.span("operator"):
+        op = structured.operator_for(system, spec)
+    with timing.span("hierarchy"):
+        hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
     if config.n_devices and config.n_devices > 1:
         # fem_tpu's stepper.py:380-446: the CG's K.u and the V-cycle's fine
         # level run on cell slabs of the leading axis, u replicated, one
@@ -262,9 +264,9 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     sh = sharded or _Sharded(fine=None)
     t_asm = "by the path choice"
     if A_csr is None:
-        t0 = time.perf_counter()
-        A_csr = amg.assemble_csr(system)
-        t_asm = f"{time.perf_counter() - t0:.2f} s"
+        with timing.span("assemble") as s_asm:
+            A_csr = amg.assemble_csr(system)
+        t_asm = f"{s_asm.seconds:.2f} s"
     fh = hierarchy.build(system, A_csr,
                          gmg_min=config.gmg_min if sh.gmg else n,
                          coarse_max=20000, fine=sh.fine, bc_dofs=sh.bc_dofs,
@@ -275,8 +277,8 @@ def _setup_unstructured(system: System, config: Config, solver: str, spec,
     if fh.kind == "gmg":
         log("    Geometric lattice-MG preconditioner")
     log(f"    Unstructured set-up: assemble_csr {t_asm}, operator "
-        f"{fh.t_op:.2f} s, hierarchy {fh.t_hier:.2f} s, level sizes "
-        f"{fh.sizes}")
+        f"{fh.spans['operator'].seconds:.2f} s, hierarchy "
+        f"{fh.spans['hierarchy'].seconds:.2f} s, level sizes {fh.sizes}")
     fine = fh.fine
     bc_mask = torch.zeros(n, dtype=torch.bool, device=dev)
     bc_mask[system.bc_dofs] = True
@@ -434,7 +436,7 @@ def _setup_sharded_amg(system: System, config: Config, solver: str, A_csr,
         system, config, solver, None, log, A_csr=A_csr[idx][:, idx],
         sharded=_Sharded(
             fine, hg.layout(),
-            order=torch.as_tensor(idx, device=system.device),
+            order=timing.upload(idx, device=system.device),
             bc_dofs=pos[bc // pdim] * pdim + bc % pdim,
             coords=np.asarray(system.problem.coords)[np.argsort(pos)],
             gmg=False))
@@ -498,19 +500,25 @@ def run(
     log: Optional[Callable[[str], None]] = None,
 ) -> StepResult:
     config = config or Config()
-    with device_trace(config.profile_dir):
-        return _run(problem, config, log or (lambda msg: None))
+    device = config.torch_device()
+    cuda = device.type == "cuda"
+    tm = Timers(sync_device=device if config.timing and cuda else None,
+                traced=bool(config.timing or config.profile_dir),
+                peak_device=device if cuda else None)
+    with device_trace(config.profile_dir), tm.active():
+        return _run(problem, config, log or (lambda msg: None), tm)
 
 
-def _run(problem: Problem, config: Config, log) -> StepResult:
+def _run(problem: Problem, config: Config, log, tm: Timers) -> StepResult:
     dtype = config.torch_dtype
     device = config.torch_device()
-    tm = Timers(sync_device=device if config.timing and device.type == "cuda"
-                else None)
     n = problem.ndof
     solver = config.resolve_solver(n)
     explicit = problem.stype == "explicit"
-    spec = structured.detect(problem) if solver == "cg" else None
+    spec = None
+    if solver == "cg":
+        with tm.span("detect"):
+            spec = structured.detect(problem)
     if config.viscoelastic and problem.has_cohesive and not explicit:
         raise NotImplementedError(
             "viscoelastic + cohesive in one run is not supported yet")
@@ -558,8 +566,9 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
             log(f"Interval: {k}")
     else:
         with tm.phase("setup"):
-            system = System(problem, dtype, device=device,
-                            plane_stress=config.plane_stress)
+            with tm.span("system"):
+                system = System(problem, dtype, device=device,
+                                plane_stress=config.plane_stress)
             path = choose_path(features)
             log(f"    Solver path: {path}")
             creep_state = (system.creep_state_init() if config.viscoelastic
@@ -574,8 +583,9 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
                         "--no-resume or a fresh --checkpoint-dir")
                 creep_state = resumed_creep
             # the sharded AMG row gets the lattice check's matrix
-            step = _SETUP[path](system, config, solver, csr.pop("A", spec),
-                                log)
+            with tm.span("solver"):
+                step = _SETUP[path](system, config, solver,
+                                    csr.pop("A", spec), log)
         solve_phase = "newton" if path == "cohesive_newton" else "solve"
         for k in range(first_step, nsteps + 1):
             log(f"Interval: {k}")
@@ -583,7 +593,8 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
             with tm.phase("rhs"):
                 F = system.rhs(t_init)
                 if creep_state:
-                    moduli = system.creep_moduli(creep_state)
+                    with tm.span("creep_moduli"):
+                        moduli = system.creep_moduli(creep_state)
                     F = F + system.creep_force(creep_state, moduli)
             with tm.phase(solve_phase):
                 inc = step(F, du, aggregate_u, t_init + problem.dt)
@@ -611,13 +622,15 @@ def _run(problem: Problem, config: Config, log) -> StepResult:
                 checkpoint.save(config.checkpoint_dir, k, aggregate_u,
                                 aggregate_stress, du,
                                 creep_state=creep_state or None)
+    with tm.span("to_host"):
+        host = [a.cpu().numpy() for a in (aggregate_u, aggregate_stress, du)]
     if config.timing:
         log("Phase timers:\n" + tm.report())
 
     return StepResult(
-        aggregate_u=aggregate_u.cpu().numpy(),
-        aggregate_stress=aggregate_stress.cpu().numpy(),
-        du=du.cpu().numpy(),
+        aggregate_u=host[0],
+        aggregate_stress=host[1],
+        du=host[2],
         krylov_iters=krylov_iters,
         nsteps=nsteps,
         path=path,

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from fem_tpu_torch.utils import timing
+
 _CREEP_PREFIX = "creep__"
 
 
@@ -60,7 +62,7 @@ def load(path: str, device=None, dtype=None) -> Tuple[int, object, object,
         step = int(z["step"])
     if device is not None:
         def dev(a):
-            return torch.as_tensor(a, dtype=dtype, device=device)
+            return timing.upload(a, dtype=dtype, device=device)
 
         out = (dev(out[0]), dev(out[1]), dev(out[2]),
                {k: dev(v) for k, v in out[3].items()})

@@ -1,14 +1,23 @@
-"""Build and load the hand-written CUDA kernels of `fem_tpu_torch/csrc/`.
+"""Build and load the hand-written native code of `fem_tpu_torch/csrc/`.
 
-The sources have a plain C interface. At first use each is compiled with
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC`, one
-nvcc process per source, all started together; the objects are then linked
-into one shared library under `build/kernels/` at the repository root
-(listed in .gitignore), named by a hash of the sources and flags so that an
-edited source is rebuilt, and loaded with ctypes. Nothing is built or loaded
-at import time: the CPU tests import every module of the package.
+The sources have a plain C interface. At first use each CUDA source (`*.cu`)
+is compiled with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c
+-Xcompiler -fPIC`, one nvcc process per source, all started together; the
+objects are then linked into one shared library under `build/kernels/` at
+the repository root (listed in .gitignore), named by a hash of the sources
+and flags so that an edited source is rebuilt, and loaded with ctypes.
 
-nvcc is taken from PATH, else $CUDA_HOME/bin, else /usr/local/cuda/bin.
+The host sources (`*.cpp`: the VTK text formatter) go into a second library
+beside it, built by the host compiler alone (`g++ -O3 -std=c++17 -fPIC
+-shared -pthread`), so a machine without nvcc builds it too. `library()`
+builds and loads it with the CUDA library, its compiler running beside the
+nvcc processes, so a run that launches a kernel has it ready before it
+writes any output; `host_library()` builds it on first use where nothing
+has. Nothing is built or loaded at import time: the CPU tests import every
+module of the package.
+
+nvcc is taken from PATH, else $CUDA_HOME/bin, else /usr/local/cuda/bin; the
+host compiler is g++, else c++, from PATH.
 """
 
 from __future__ import annotations
@@ -58,6 +67,18 @@ SIGNATURES = {
                           ctypes.c_int, _P],
 }
 
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+_LL = ctypes.c_longlong
+# host entry point -> (argtypes, restype)
+HOST_SIGNATURES = {
+    # (coords, stress, disp, nnds, pdim, cpdim, vtk_ids, offsets, nodes, ne,
+    #  threads, out, len)
+    "fem_vtk_text": ([_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P, _P,
+                      _P, _LL, ctypes.c_int, ctypes.POINTER(_P),
+                      ctypes.POINTER(_LL)], ctypes.c_int),
+    "fem_vtk_free": ([_P], None),
+}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -69,22 +90,77 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH")
+
+
 def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def _host_sources():
+    return sorted(CSRC.glob("*.cpp"))
+
+
+def _hashed(stem: str, flags, sources) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libfem_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    return _hashed("libfem_kernels", NVCC_FLAGS, _sources())
+
+
+def host_library_path() -> Path:
+    return _hashed("libfem_host", HOST_FLAGS, _host_sources())
+
+
+def _start_host_build():
+    """Start the host compiler on the host sources, unless their library
+    exists: (command, temporary output, process), or None."""
+    out = host_library_path()
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_cxx(), *HOST_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _host_sources())]
+    return cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_host_build(job) -> Path:
+    out = host_library_path()
+    if job is None:
+        return out
+    cmd, tmp, proc = job
+    report = proc.communicate()[0]
+    log = f"$ {' '.join(cmd)}\n{report}[exit {proc.returncode}]\n"
+    out.with_suffix(".so.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"the host compiler failed:\n{log}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
+    return out
+
+
+def build_host() -> Path:
+    """Compile the host sources unless the library for their hash exists."""
+    return _finish_host_build(_start_host_build())
 
 
 def build() -> Path:
     """Compile the sources unless the library for their hash exists: one
-    nvcc per source, run in parallel, then one link. The compilers' report
-    (registers, spills per kernel) is kept beside the library as
+    nvcc per source, run in parallel with the host library's compiler where
+    that library is missing, then one link. The compilers' report
+    (registers, spills per kernel) is kept beside each library as
     `<library>.log`."""
     out = library_path()
     if out.exists():
@@ -92,6 +168,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stem = out.with_suffix(f".{os.getpid()}")
     nvcc = _nvcc()
+    host_job = _start_host_build()
     t0 = time.perf_counter()
     jobs = []
     for src in _sources():
@@ -116,6 +193,7 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     log += f"[{time.perf_counter() - t0:.1f} s]\n"
     out.with_suffix(".so.log").write_text(log)
+    _finish_host_build(host_job)
     if not ok:
         raise RuntimeError(f"nvcc failed building the CUDA kernels:\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
@@ -124,10 +202,23 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), and the host
+    library loaded beside it."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    host_library()
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The loaded host library (built on first call)."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, (argtypes, restype) in HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

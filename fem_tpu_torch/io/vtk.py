@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import os
 from collections.abc import Sequence
 from typing import TYPE_CHECKING, Iterator, Tuple
 
@@ -125,8 +124,7 @@ def write(
     route = "table" if isinstance(cells, CellTable) else "list"
     table = cells if route == "table" else CellTable.pack(cells)
     rows = 3 * len(coords) + 2 * len(table)
-    threads = max(1, min(len(os.sched_getaffinity(0)),
-                         rows // ROWS_PER_THREAD))
+    threads = kernels_build.host_threads(rows, ROWS_PER_THREAD)
     with _text(coords, table, stress, displacements, threads) as text:
         with open(path, "wb") as f:
             f.write(text)

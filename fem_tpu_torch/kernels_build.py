@@ -7,14 +7,15 @@ objects are then linked into one shared library under `build/kernels/` at
 the repository root (listed in .gitignore), named by a hash of the sources
 and flags so that an edited source is rebuilt, and loaded with ctypes.
 
-The host sources (`*.cpp`: the VTK text formatter) go into a second library
+The host sources (`*.cpp`: the VTK text formatter, `vtk_text.cpp`, and the
+mesh check's Jacobians, `mesh_check.cpp`) go into a second library
 beside it, built by the host compiler alone (`g++ -O3 -std=c++17 -fPIC
 -shared -pthread`), so a machine without nvcc builds it too. `library()`
 builds and loads it with the CUDA library, its compiler running beside the
 nvcc processes, so a run that launches a kernel has it ready before it
 writes any output; `host_library()` builds it on first use where nothing
-has. Nothing is built or loaded at import time: the CPU tests import every
-module of the package.
+has (`problem.load` on a checkout's first run). Nothing is built or loaded
+at import time: the CPU tests import every module of the package.
 
 nvcc is taken from PATH, else $CUDA_HOME/bin, else /usr/local/cuda/bin; the
 host compiler is g++, else c++, from PATH.
@@ -77,7 +78,17 @@ HOST_SIGNATURES = {
                       _P, _LL, ctypes.c_int, ctypes.POINTER(_P),
                       ctypes.POINTER(_LL)], ctypes.c_int),
     "fem_vtk_free": ([_P], None),
+    # (coords, pdim, conn, ne, nn, dN, nip, threads, out) -> elements whose
+    # least det J is <= 0, or -1 for a shape the port does not have
+    "fem_mesh_min_detj": ([_P, ctypes.c_int, _P, _LL, ctypes.c_int, _P,
+                           ctypes.c_int, ctypes.c_int, _P], _LL),
 }
+
+
+def host_threads(items: int, per_thread: int) -> int:
+    """Threads for host work on `items` rows or elements: one per CPU this
+    process may run on, at most one per `per_thread` items, at least one."""
+    return max(1, min(len(os.sched_getaffinity(0)), items // per_thread))
 
 
 def _nvcc() -> str:

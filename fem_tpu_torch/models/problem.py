@@ -5,8 +5,10 @@ reference's array-of-structs `element` type and its global mesh state
 (m_elems.F90:6-12, m_global.F90:17-44) with type-batched numpy arrays: one
 `Block` per element type holding a dense (ne, nn) connectivity.
 
-Everything here is host-side numpy; `fem_tpu_torch.models.system.System`
-moves it to a torch device with the requested dtype.
+Everything here is host-side numpy, but for the mesh check's Jacobians,
+which the host library's `fem_mesh_min_detj` (`csrc/mesh_check.cpp`, built
+by `kernels_build`) computes; `fem_tpu_torch.models.system.System` moves the
+problem to a torch device with the requested dtype.
 """
 
 from __future__ import annotations
@@ -17,8 +19,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from fem_tpu_torch import kernels_build
 from fem_tpu_torch.io import inp, native
 from fem_tpu_torch.ops import elements as element_lib
+
+# Elements below which one more thread of the Jacobian check costs more to
+# start than it saves.
+ELEMENTS_PER_THREAD = 16384
+
+# The last mesh check: the continuum elements whose Jacobians it checked,
+# the most threads one block took, and the elements whose least det J is
+# <= 0. `load` runs outside `stepper.run`, where `timing` keeps no counts.
+last_check: dict = {}
 
 
 @dataclasses.dataclass
@@ -293,11 +305,38 @@ def _side_area(pts: np.ndarray) -> float:
     raise ValueError(f"unsupported side node count {n}")
 
 
+def _min_detj(coords: np.ndarray, conn: np.ndarray,
+              et: element_lib.ElementType, threads: int):
+    """Each element's least det J over its integration points, (ne,), and
+    the count of elements where it is <= 0: the host library's
+    `fem_mesh_min_detj` on `threads` threads. Every id of `conn` must index
+    a row of `coords`."""
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    conn = np.ascontiguousarray(conn, dtype=np.int32)
+    if coords.ndim != 2 or coords.shape[1] != et.pdim:
+        raise ValueError(f"{et.name} elements are {et.pdim}D but the "
+                         f"coordinates are {coords.shape[1:]}")
+    if conn.ndim != 2 or conn.shape[1] != et.nnodes:
+        raise ValueError(f"{et.name} connectivity {conn.shape} is not "
+                         f"(ne, {et.nnodes})")
+    dN = np.ascontiguousarray(et.dN, dtype=np.float64)
+    out = np.empty(conn.shape[0])
+    bad = kernels_build.host_library().fem_mesh_min_detj(
+        coords.ctypes.data, et.pdim, conn.ctypes.data, conn.shape[0],
+        et.nnodes, dN.ctypes.data, et.nip, threads, out.ctypes.data)
+    if bad < 0:
+        raise ValueError(f"no Jacobian check for {et.name} elements")
+    return out, bad
+
+
 def _validate_mesh(coords: np.ndarray, blocks: Dict[str, Block]) -> None:
     """Fail fast on out-of-range ids; warn on inverted/degenerate continuum
     elements (which the reference lets through silently, producing
-    negative-definite or NaN stiffness)."""
+    negative-definite or NaN stiffness). The ids are checked before any
+    coordinate is read."""
     nnds = coords.shape[0]
+    last_check.clear()
+    checked = most_threads = total_bad = 0
     for b in blocks.values():
         if b.conn.min() < 0 or b.conn.max() >= nnds:
             raise ValueError(
@@ -305,17 +344,18 @@ def _validate_mesh(coords: np.ndarray, blocks: Dict[str, Block]) -> None:
             )
         if b.eltype == "coh":
             continue
-        et = b.et
-        ecoords = coords[b.conn]  # (ne, nn, pdim)
-        jac = np.einsum("ipn,end->eipd", et.dN, ecoords)
-        detj = np.linalg.det(jac)
-        if (detj <= 0).any():
-            bad = int((detj.min(axis=1) <= 0).sum())
+        threads = kernels_build.host_threads(b.ne, ELEMENTS_PER_THREAD)
+        _, bad = _min_detj(coords, b.conn, b.et, threads)
+        checked += b.ne
+        most_threads = max(most_threads, threads)
+        total_bad += bad
+        if bad:
             warnings.warn(
                 f"{bad} {b.eltype} element(s) have non-positive Jacobian "
                 "(inverted or degenerate); stiffness will be wrong",
                 stacklevel=2,
             )
+    last_check.update(elements=checked, threads=most_threads, bad=total_bad)
 
 
 def load(path_or_text, backend: str = "auto") -> Problem:

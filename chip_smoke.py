@@ -108,17 +108,9 @@ Phases, each of which exits non-zero when it fails:
  19. CLI parity: the elastic golden deck through the CLI on cuda with
      --precond jacobi --solver cg --shards 2; the two shard files hold every
      element once, u_y 0.05 / 0.10, stress 105 / 245 / 0;
- 20. the warm start and the W-cycle at full width: the 80^3 box over 3 equal
-     load steps through structured_mg_cg (step 1 takes 12 +- 1 iterations,
-     steps 2-3 no more; each step's true residual <= 1e-8), then one solve of
-     the box with a gamma = 2 hierarchy beside gamma = 1: iterations, wall
-     (median of 5), K2 launches;
- 21. the refinement measurement: the stepper's float64 MG-CG solve of the
-     80^3 box against solver/mixed.ir_solve with the float32 stencil operator
-     and a float32 hierarchy, both to a true relative residual <= 1e-9,
-     in turns: wall (median of 7 with the spread), device time
-     (torch.profiler), iterations, K2 launches by dtype; one JSON line with
-     the verdict;
+ 20. the warm start at full width: the 80^3 box over 3 equal load steps
+     through structured_mg_cg (step 1 takes 12 +- 1 iterations, steps 2-3
+     no more; each step's true residual <= 1e-8);
  22. the element-sharded rows, FEM_TPU_TORCH_VIRTUAL_DEVICES=4 set here and
      4 shards on this one card (their wall says nothing about scaling):
      (a) ShardedOperator.matvec and diag against System.matvec / diag on the
@@ -130,10 +122,9 @@ Phases, each of which exits non-zero when it fails:
      order), held against its own single-device run: iterations +-1, u to
      1e-9, true residual <= 1e-8, K3 launched; (c) the node-permuted
      cohesive strip with n_devices=4: phase 13's Newton counts, u to 1e-8;
- 23. the slab-sharded stencil at 80^3, 4 shards: (a) matvec_sharded and
-     halo_matvec against structured.matvec (1e-12) with the scalar material
-     and with a random per-cell field; one all-reduce of ndof * 8 bytes,
-     and exactly two exchanges of one node plane (81 * 81 * 3 * 8 bytes);
+ 23. the slab-sharded stencil at 80^3, 4 shards: (a) matvec_sharded
+     against structured.matvec (1e-12) with the scalar material and with a
+     random per-cell field; one all-reduce of ndof * 8 bytes;
      K2 against both plain forms, as in phase 4, on every slab grid of the
      4- and the 3-shard run ((21, 81, 81); (28, 81, 81), (27, 81, 81)), and
      timed on one (21, 81, 81) slab beside cuSPARSE on the assembled matrix
@@ -1068,17 +1059,12 @@ def phase19_cli_shards(cli_main, vtk):
           flush=True)
 
 
-def phase20_warm_wcycle(torch, dev, n):
-    """Phase 20: the warm-started 3-step 80^3 run, then a gamma = 2 solve
-    beside a gamma = 1 one. Returns the launches of the run and of one
-    W-cycle solve."""
-    import statistics
-
+def phase20_warm(torch, dev, n):
+    """Phase 20: the warm-started 3-step 80^3 run. Returns its launches."""
     from fem_tpu_torch.config import Config
     from fem_tpu_torch.io import meshgen
     from fem_tpu_torch.ops import cuda_kernels as ck
-    from fem_tpu_torch.ops import structured
-    from fem_tpu_torch.solver import cg, multigrid, stepper
+    from fem_tpu_torch.solver import stepper
 
     box3 = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0, E=200e9,
                                    nu=0.3, tip_load=-1e6, t=3.0, dt=1.0)
@@ -1091,7 +1077,7 @@ def phase20_warm_wcycle(torch, dev, n):
     finally:
         stepper._SETUP["structured_mg_cg"] = setup
     launches = dict(ck.launches)
-    system, op, rel = structured_box(torch, dev, box3)
+    _, _, rel = structured_box(torch, dev, box3)
     rels = [rel(F, du) for F, du in steps]
     del steps
     print(f"warm start: {n}^3 box ({box3.ndof} DOFs, float64), 3 equal load "
@@ -1106,150 +1092,7 @@ def phase20_warm_wcycle(torch, dev, n):
           f"warm-started step took more")
     check(max(rels) <= 1e-8, f"3-step box true residuals {rels}")
 
-    # one solve with the V-cycle and the W-cycle, as the stepper's row runs
-    # it: the same operator, mask and right-hand side
-    mask = torch.zeros(box3.ndof, dtype=torch.bool, device=dev)
-    mask[system.bc_dofs] = True
-    raw = lambda v: structured.matvec(op, v)  # noqa: E731
-    masked = cg.masked_operator(raw, mask)
-    F = system.rhs(0.0)
-    b = cg.constrained_rhs(raw, F, mask, torch.zeros_like(F))
-    out = {}
-    for gamma in (1, 2):
-        hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev",
-                               gamma=gamma)
-
-        def solve():
-            return cg.pcg(masked, b, precond=multigrid.preconditioner(hier),
-                          rtol=1e-9, maxiter=400)
-
-        solve()
-        ck.reset_launches()
-        r = solve()
-        k2 = ck.launches["stencil_matvec"]
-        walls = [sync_wall(torch, solve)[1] for _ in range(5)]
-        out[gamma] = dict(iters=r.iters, k2=k2, rel=rel(F, r.x),
-                          wall_ms=1e3 * statistics.median(walls),
-                          lo=1e3 * min(walls), hi=1e3 * max(walls))
-        del hier
-    for gamma, m in out.items():
-        print(f"{'W' if gamma == 2 else 'V'}-cycle (gamma {gamma}) MG-CG on "
-              f"the {n}^3 box: {m['iters']} iterations, true rel residual "
-              f"{m['rel']:.3e}, solve wall {m['wall_ms']:.2f} ms (median of "
-              f"5, {m['lo']:.2f}-{m['hi']:.2f}), K2 launches {m['k2']}",
-              flush=True)
-    check(max(m["rel"] for m in out.values()) <= 1e-8,
-          "a V- or W-cycle solve missed its residual")
-    check(out[2]["iters"] <= out[1]["iters"],
-          f"the W-cycle took more iterations: {out}")
-    check(out[2]["k2"] > out[1]["k2"] > 0, f"K2 launches {out}")
-    return launches, {"stencil_matvec": out[2]["k2"]}
-
-
-def phase21_refinement(torch, dev, n, reps=7):
-    """Phase 21: float64 MG-CG against f32-inner / f64-refinement on the
-    n^3 box, both to a true relative residual <= 1e-9. Returns the launches
-    of one solve of each side."""
-    import statistics
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from fem_tpu_torch.io import meshgen
-    from fem_tpu_torch.ops import cuda_kernels as ck
-    from fem_tpu_torch.ops import structured
-    from fem_tpu_torch.solver import cg, mixed, multigrid
-
-    box = meshgen.hex_box_problem(n, n, n, lx=1.0, ly=1.0, lz=1.0, E=200e9,
-                                  nu=0.3, tip_load=-1e6)
-    system, op64, rel = structured_box(torch, dev, box)
-    F = system.rhs(0.0)
-    bc, vals = system.bc_dofs, system.bc_step_vals()
-    mask = torch.zeros(box.ndof, dtype=torch.bool, device=dev)
-    mask[bc] = True
-    raw = lambda v: structured.matvec(op64, v)  # noqa: E731
-    masked = cg.masked_operator(raw, mask)
-    b = cg.constrained_rhs(raw, F, mask, torch.zeros_like(F))
-    h64 = multigrid.build(op64, bc, smoother="chebyshev")
-    op32 = op64.astype(torch.float32)
-    h32 = multigrid.build(op32, bc, smoother="chebyshev")
-    d32 = structured.diag(op32)
-
-    rtol64 = [1e-9]
-
-    def solve64():
-        # the structured row's solve (stepper._setup_structured)
-        r = cg.pcg(masked, b, precond=multigrid.preconditioner(h64),
-                   rtol=rtol64[0], maxiter=400)
-        return r.x, dict(iters=r.iters, rtol=rtol64[0])
-
-    # CG stops on its recurrence residual: tighten it until the true one,
-    # which both sides are held to, is <= 1e-9
-    while rel(F, solve64()[0]) > 1e-9 and rtol64[0] > 1e-10:
-        rtol64[0] *= 0.5
-
-    def solve_ir(inner_rtol):
-        def solve():
-            r = mixed.ir_solve(op64, op32, F, d32, bc, vals, rtol=1e-9,
-                               inner_rtol=inner_rtol,
-                               apply=structured.matvec,
-                               precond32=multigrid.preconditioner(h32))
-            return r.x, dict(iters=r.inner_iters, outer=r.outer_iters)
-        return solve
-
-    sides = {"float64": solve64}
-    for inner_rtol in (1e-3, 1e-4, 1e-5):
-        sides[f"ir_{inner_rtol:.0e}"] = solve_ir(inner_rtol)
-    out = {name: dict(walls=[]) for name in sides}
-    launches = {}
-    for name, fn in sides.items():
-        fn()  # warm-up
-        tally, restore = tally_k2(ck, lambda t, u: str(u.dtype)[6:])
-        ck.reset_launches()
-        try:
-            x, counts = fn()
-        finally:
-            restore()
-        launches[name] = dict(ck.launches)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sync_wall(torch, fn)
-        dev_rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        out[name].update(
-            counts, true_rel=rel(F, x), k2_by_dtype=tally,
-            device_ms=sum(e.self_device_time_total for e in dev_rows) / 1e3,
-            kernels=sum(e.count for e in dev_rows))
-    # walls in turns: every side once, then in reverse, and again
-    order = list(sides)
-    for i in range(reps):
-        for name in (order if i % 2 == 0 else order[::-1]):
-            out[name]["walls"].append(1e3 * sync_wall(torch, sides[name])[1])
-    for m in out.values():
-        walls = m.pop("walls")
-        m.update(wall_ms=statistics.median(walls), wall_min_ms=min(walls),
-                 wall_max_ms=max(walls))
-    best = min((k for k in out if k != "float64"),
-               key=lambda k: out[k]["wall_ms"])
-    faster = out[best]["wall_max_ms"] < out["float64"]["wall_min_ms"]
-    print(json.dumps({"refinement": {
-        "box": f"{n}^3", "ndof": box.ndof, "reps": reps, "sides": out,
-        "best_refinement": best,
-        "refinement_faster_beyond_spread": faster,
-        "verdict": ("refinement faster: the structured row should take it"
-                    if faster else
-                    "refinement not faster: no stepper row takes it")}}),
-          flush=True)
-    for name, m in out.items():
-        check(m["true_rel"] <= 1.01e-9,
-              f"refinement measurement: {name} true rel residual "
-              f"{m['true_rel']}")
-    check(out["float64"]["k2_by_dtype"].get("float32", 0) == 0
-          and out[best]["k2_by_dtype"].get("float32", 0) > 0,
-          f"K2 launches by dtype: {out}")
-    # the code follows the verdict: the structured row solves in float64
-    check(not faster, "refinement measured faster beyond the spread, and "
-          "the structured row does not take it")
-    return launches["float64"], launches[best]
+    return launches
 
 
 def traced_run(torch, stepper, problem, config):
@@ -1422,7 +1265,7 @@ def phase23_slab(torch, dev, big, res7, k2_case, k2_measure):
     """Phase 23: the slab-sharded stencil at 80^3. k2_case and k2_measure
     are phase 4's checks of K2 on an operator's grid. Returns the launches of
     the 4- and 3-shard runs, K2's measurements on one slab, and the
-    collectives of one K.u in each of the two forms."""
+    collectives of one sharded K.u."""
     import numpy as np
 
     from fem_tpu_torch.config import Config
@@ -1438,7 +1281,6 @@ def phase23_slab(torch, dev, big, res7, k2_case, k2_measure):
     label = mesh.describe()
     system, op, rel = structured_box(torch, dev, big)
     n, nn = op.ndof, op.shape[0]  # DOFs; nodes a side (81)
-    plane = nn * nn * 3 * 8
     rng = np.random.default_rng(0)
     u = torch.as_tensor(rng.standard_normal(n), device=dev)
     cells = tuple(c - 1 for c in op.shape)
@@ -1456,26 +1298,19 @@ def phase23_slab(torch, dev, big, res7, k2_case, k2_measure):
         comm_psum = commcount.collectives(
             lambda: errs.update(psum=rel_max(structured.matvec_sharded(sl, u),
                                              ref)))
-        ub = mesh_mod.scatter(mesh, structured.to_blocks(sl, u))
-        comm_halo = commcount.collectives(
-            lambda: errs.update(halo=rel_max(structured.from_blocks(
-                sl, structured.halo_matvec(sl, ub)), ref)))
         k2 = ck.launches["stencil_matvec"]
         print(f"slab stencil {nn - 1}^3 ({n} DOFs), {name}, {label}: "
-              f"matvec_sharded rel diff {errs['psum']:.3e}, halo_matvec "
-              f"{errs['halo']:.3e} (tol 1e-12), K2 launches of the two "
-              f"applies {k2}", flush=True)
+              f"matvec_sharded rel diff {errs['psum']:.3e} (tol 1e-12), K2 "
+              f"launches of the apply {k2}", flush=True)
         check(max(errs.values()) <= 1e-12, f"slab K.u ({name}): {errs}")
-        check(k2 == (8 if o is op else 0),
+        check(k2 == (4 if o is op else 0),
               f"slab K.u ({name}) launched K2 {k2} times")
         check(sorted(comm_psum) == [("all_reduce_sum", (n,), n * 8),
                                     ("replicate", (n,), n * 8)],
               f"matvec_sharded collectives: {comm_psum}")
-        check(comm_halo == [("neighbor_exchange", (nn, nn, 3), plane)] * 2,
-              f"halo_matvec collectives: {comm_halo}")
         if o is op:
             lop = sl.ops[0]
-    del field_op, sl, ub, ref
+    del field_op, sl, ref
     # K2 against both plain forms on every slab grid that the 4- and the
     # 3-shard runs below give it, in float64 and float32 as in phase 4
     slab_err = {}
@@ -1542,7 +1377,7 @@ def phase23_slab(torch, dev, big, res7, k2_case, k2_measure):
         check(set(on_slabs) >= slab_grids and len(ar) * shards
               == sum(k for g, k in on_slabs.items() if g in slab_grids),
               f"K2 did not run once per shard per fine K.u: {k2_by_grid}")
-    return launches[4], launches[3], m_slab, comm_psum, comm_halo
+    return launches[4], launches[3], m_slab, comm_psum
 
 
 def phase24_halo_block(torch, dev, lex, res10, A_lex, true_rel_residual):
@@ -2633,7 +2468,7 @@ def main():
         check(launches[name] > 0, f"the 80^3 run launched no {name}")
     # K2 on every level's operator of that run's hierarchy, built as the
     # stepper builds it
-    hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
+    hier = multigrid.build(op, system.bc_dofs)
     level_shapes = [lv.op.shape for lv in hier.levels]
     check(set(level_shapes) == set(k2_by_grid),
           f"MG levels {level_shapes} are not the grids K2 ran on "
@@ -3041,13 +2876,11 @@ def main():
     del amg55, mask55
     # 18. the native parser
     phase18_native(cli_main)
-    stamp("phase 19-21: CLI shards, warm start and W-cycle, refinement")
+    stamp("phase 19-20: CLI shards, warm start")
     # 19. --precond / --shards through the CLI
     phase19_cli_shards(cli_main, vtk)
-    # 20. the warm start and the W-cycle at 80^3
-    launches_warm, launches_w = phase20_warm_wcycle(torch, dev, 80)
-    # 21. float64 MG-CG against f32-inner / f64-refinement at 80^3
-    launches_f64, launches_ir = phase21_refinement(torch, dev, 80)
+    # 20. the warm start at 80^3
+    launches_warm = phase20_warm(torch, dev, 80)
     stamp("phase 22: element-sharded")
     # 22. the element-sharded rows, 4 shards on this card
     (launches_shd_amg, launches_shd_coh, comm_element,
@@ -3055,8 +2888,8 @@ def main():
                                  true_rel_residual)
     # 23-25. the DOF-sharded tiers, 4 shards on this card
     stamp("phase 23: slab stencil")
-    (launches_slab4, launches_slab3, k2_slab, comm_psum,
-     comm_slab_halo) = phase23_slab(torch, dev, big, res7, k2_case,
+    (launches_slab4, launches_slab3, k2_slab,
+     comm_psum) = phase23_slab(torch, dev, big, res7, k2_case,
                                     k2_measure)
     stamp("phase 24: halo block stencil")
     launches_halo_block, comm_block = phase24_halo_block(
@@ -3073,7 +2906,6 @@ def main():
     for tier, comm in (
             ("element-sharded K.u (permuted 55^3)", comm_element),
             ("slab stencil matvec_sharded (80^3)", comm_psum),
-            ("slab stencil halo_matvec (80^3)", comm_slab_halo),
             ("block-stencil halo_matvec_g (lex 55^3)", comm_block),
             ("halo-gather matvec (permuted 55^3)", comm_gather)):
         print(commcount.summary(tier, comm), flush=True)
@@ -3104,8 +2936,7 @@ def main():
             "gmg_55": launches_gmg, "coh_strip_gmg": launches_strip,
             "coh_strip_amg": launches_coh, "creep_80": launches14,
             "resume_80": launches15, **runs_grad,
-            "warm_3step_80": launches_warm, "wcycle_solve_80": launches_w,
-            "solve_f64_80": launches_f64, "solve_refined_80": launches_ir,
+            "warm_3step_80": launches_warm,
             "sharded_amg_plate": launches_shd_amg,
             "sharded_coh_strip_amg": launches_shd_coh,
             "sharded_slab_80": launches_slab4,

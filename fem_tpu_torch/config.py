@@ -23,9 +23,9 @@ class Config:
     Attributes:
       device: "cuda" (default) or "cpu". CUDA requested on a machine without
         it raises; nothing falls back to the CPU.
-      dtype: "float64" (default; the H100 has native FP64, and the
-        f32-inner/f64-refinement split of solver/mixed.py, measured, is no
-        faster there, so no stepper row takes it) or "float32".
+      dtype: "float64" (default; the H100 has native FP64, and fem_tpu's
+        f32-inner/f64-refinement split, measured there, is slower, so the
+        port does not carry it) or "float32".
       solver: "direct" (dense LU; the MUMPS stand-in for small n), "cg"
         (matrix-free PCG), or "auto" (direct up to `direct_threshold` DOFs).
       rtol / atol / maxiter: Krylov tolerances (reference rtol 1e-9,

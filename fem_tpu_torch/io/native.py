@@ -3,11 +3,12 @@
 The port's own copy of `fem_tpu/io/native.py:71-274`; the C++ engine is
 backend-neutral host code and is shared by both packages as it is. It covers
 the reference's host-side native roles — deck parsing (m_io.F90), METIS
-partitioning (m_io.F90:137), element (re)ordering — with host-side
-replacements (a flat-array parser, Morton ordering, RCB partitioning).
-`available()` is False when the library has not been built; the parser and
-morton_order then raise RuntimeError, and rcb_partition (the `--shards`
-writer's partitioner) takes its numpy form, as fem_tpu's does.
+partitioning (m_io.F90:137) — with host-side replacements (a flat-array
+parser, RCB partitioning); the library's Morton ordering is not bound, since
+nothing in the port orders elements. `available()` is False when the
+library has not been built; the parser then raises RuntimeError, and
+rcb_partition (the `--shards` writer's partitioner) takes its numpy form,
+as fem_tpu's does.
 
 Build with `make -C native` (plain C ABI, bound with ctypes).
 """
@@ -85,10 +86,6 @@ def _load():
         ]
         lib.fem_parse_deck.restype = ctypes.c_int
         lib.fem_free_deck.argtypes = [ctypes.POINTER(_FemDeck)]
-        lib.fem_morton_order.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32),
-        ]
         lib.fem_rcb_partition.argtypes = [
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
@@ -177,19 +174,6 @@ def parse(path_or_text: str) -> inp.Deck:
     ]
     fields = {k: v for k, v in f.items() if not k.startswith("elem_")}
     return inp.Deck(elements=elements, **fields)
-
-
-def morton_order(centroids: np.ndarray) -> np.ndarray:
-    """Z-order permutation of elements by centroid (locality-preserving)."""
-    lib = _require()
-    ne, pdim = centroids.shape
-    c = np.ascontiguousarray(centroids, dtype=np.float64)
-    out = np.empty(ne, dtype=np.int32)
-    lib.fem_morton_order(
-        c.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), ne, pdim,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-    )
-    return out
 
 
 def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:

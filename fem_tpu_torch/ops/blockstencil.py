@@ -160,30 +160,6 @@ def matvec(op: BlockStencilOperator, u):
 # ---------------------------------------------------------------------------
 
 
-def pad_rows(op: BlockStencilOperator, nd: int) -> BlockStencilOperator:
-    """fem_tpu's way to shard a leading axis that nd does not divide, for
-    callers that need equal slabs: phantom node planes with zero coefficient
-    blocks. They couple to nothing (no real row's block points into them),
-    so real rows are exact and phantom outputs are zero. shard_rows cuts
-    unequal slabs instead."""
-    rem = (-op.dims[0]) % nd
-    if rem == 0:
-        return op
-    plane = int(np.prod(op.dims[1:]))
-    vals = torch.cat([op.vals, op.vals.new_zeros(
-        (rem * plane,) + op.vals.shape[1:])])
-    return BlockStencilOperator(vals, (op.dims[0] + rem,) + op.dims[1:],
-                                op.pdim)
-
-
-def embed_rows_g(u_g, nx_pad: int):
-    """(nx, *rest, pdim) -> (nx_pad, *rest, pdim), phantom planes zero."""
-    if u_g.shape[0] == nx_pad:
-        return u_g
-    return torch.cat([u_g, u_g.new_zeros((nx_pad - u_g.shape[0],)
-                                         + u_g.shape[1:])])
-
-
 def vals_to_slabs(op: BlockStencilOperator, nd: int) -> List[torch.Tensor]:
     """vals -> nd disjoint row slabs (c_i * plane, pdim, 3^dim * pdim), the
     rows of node planes [start_i, end_i) of the leading axis

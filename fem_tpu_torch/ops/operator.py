@@ -40,11 +40,6 @@ class FusedOperator:
     ndof: int
     pdim: int
 
-    def astype(self, dtype) -> "FusedOperator":
-        return dataclasses.replace(self, blocks=tuple(
-            dataclasses.replace(b, dNx=b.dNx.to(dtype), lam_s=b.lam_s.to(dtype),
-                                mu_s=b.mu_s.to(dtype)) for b in self.blocks))
-
 
 def build(system) -> FusedOperator:
     """Build from a models.system.System, on its device and in its dtype."""

@@ -19,7 +19,7 @@ One schedule per operator kind:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,13 +74,6 @@ class StencilOperator:
     @property
     def offsets(self):
         return HEX_OFFSETS if self.pdim == 3 else QUAD_OFFSETS
-
-    def astype(self, dtype) -> "StencilOperator":
-        return dataclasses.replace(
-            self,
-            k_lam=self.k_lam.to(dtype), k_mu=self.k_mu.to(dtype),
-            lam=self.lam.to(dtype), mu=self.mu.to(dtype),
-        )
 
 
 def build(cell_sizes, node_shape, lam, mu, *, dtype=torch.float64,
@@ -253,7 +246,7 @@ def diag(op: StencilOperator):
 
 
 # ---------------------------------------------------------------------------
-# Slab-sharded applies (port of fem_tpu's matvec_sharded and its block layout)
+# Slab-sharded apply (port of fem_tpu's matvec_sharded)
 # ---------------------------------------------------------------------------
 
 
@@ -315,86 +308,3 @@ def matvec_sharded(sl: SlabStencil, u):
         out[s:e + 1] = matvec_g(lop, ui.view(gshape)[s:e + 1])
         parts.append(out.view(-1))
     return mesh_mod.all_reduce_sum(sl.mesh, parts)[0]
-
-
-# The DOF-sharded block layout: shard i owns node planes [start_i, end_i]
-# (one plane shared with the next shard) and a K.u moves exactly two planes.
-
-
-def to_blocks(sl: SlabStencil, u) -> List[torch.Tensor]:
-    """(ndof,) -> the overlapping slab blocks (c_i + 1, *rest, pdim), on u's
-    device (mesh.scatter deals them out)."""
-    grid = u.view(sl.shape + (sl.pdim,))
-    return [grid[s:e + 1] for s, e in sl.bounds]
-
-
-def from_blocks(sl: SlabStencil, blocks) -> torch.Tensor:
-    """Inverse of to_blocks for blocks on one device (drops the duplicated
-    planes)."""
-    return torch.cat([b[:-1] for b in blocks[:-1]] + [blocks[-1]]).reshape(-1)
-
-
-def block_weights(sl: SlabStencil, dtype) -> List[torch.Tensor]:
-    """Per-entry weights for dot products on the block layout: a duplicated
-    plane counts once (the first plane of every block but block 0 gets 0)."""
-    ws = []
-    for i, (lop, dev) in enumerate(zip(sl.ops, sl.mesh.devices)):
-        w = torch.ones(lop.shape + (sl.pdim,), dtype=dtype, device=dev)
-        if i:
-            w[0] = 0.0
-        ws.append(w)
-    return ws
-
-
-def halo_matvec(sl: SlabStencil, u_blocks) -> List[torch.Tensor]:
-    """K @ u on the block layout (block i on shard i's device): the local
-    apply, then two one-plane exchanges reconcile the shared planes. Each
-    shard's first plane goes left and is added into the neighbour's last
-    plane (the same physical plane); the sum comes back right. Every slab
-    needs a cell: a plane is shared by two blocks, never three."""
-    if any(e == s for s, e in sl.bounds):
-        raise ValueError(
-            f"{sl.shape[0] - 1} cells over {sl.mesh.size} devices: the block "
-            f"layout needs a cell in every slab")
-    f = [matvec_g(lop, ub) for lop, ub in zip(sl.ops, u_blocks)]
-    from_right = mesh_mod.neighbor_exchange(sl.mesh, [fi[0] for fi in f], -1)
-    for fi, plane in zip(f, from_right):
-        if plane is not None:
-            fi[-1] += plane
-    from_left = mesh_mod.neighbor_exchange(sl.mesh, [fi[-1] for fi in f], 1)
-    for fi, plane in zip(f, from_left):
-        if plane is not None:
-            fi[0] = plane
-    return f
-
-
-def pad_for_devices(op: StencilOperator, nd: int):
-    """fem_tpu's way to shard a grid whose leading cell count nd does not
-    divide, for callers that need equal slabs: pad the leading axis with
-    phantom cells of zero material (a scalar operator becomes a per-cell
-    field), which contribute nothing; the phantom node planes' rows are zero,
-    so a caller must treat them as constrained. Returns (op_padded, embed,
-    extract): embed maps an (ndof,) vector of the original grid to the padded
-    one (zero fill), extract inverts it. shard_slabs cuts unequal slabs
-    instead and needs none of this."""
-    cells_x = op.shape[0] - 1
-    pad = -(-cells_x // nd) * nd - cells_x
-    if pad == 0:
-        return op, (lambda u: u), (lambda u: u)
-    rest = tuple(n - 1 for n in op.shape[1:])
-    zeros = op.lam.new_zeros((pad,) + rest)
-    op_p = StencilOperator(
-        k_lam=op.k_lam, k_mu=op.k_mu,
-        lam=torch.cat([op.lam.expand((cells_x,) + rest), zeros]),
-        mu=torch.cat([op.mu.expand((cells_x,) + rest), zeros]),
-        shape=(op.shape[0] + pad,) + op.shape[1:])
-    gshape = op.shape + (op.pdim,)
-
-    def embed(u):
-        return torch.cat([u.view(gshape),
-                          u.new_zeros((pad,) + gshape[1:])]).reshape(-1)
-
-    def extract(up):
-        return up.view(op_p.shape + (op.pdim,))[:op.shape[0]].reshape(-1)
-
-    return op_p, embed, extract

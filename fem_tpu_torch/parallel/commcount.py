@@ -7,8 +7,8 @@ returns the calls they recorded meanwhile. Same output shape, so the
 closed-form traffic model (fem_tpu's DESIGN.md §5b) is asserted the same
 way, per K·u: one full-vector all-reduce on the element-sharded operator and
 on the slab-sharded stencil; two node planes (neighbor_exchange) on the
-stencil's and the block stencil's halo layouts; four (B, pdim) bands on the
-halo-gather operator.
+block stencil's halo layout; four (B, pdim) bands on the halo-gather
+operator.
 """
 
 from fem_tpu_torch.parallel import mesh as mesh_mod

@@ -233,13 +233,6 @@ def restrict_g(r_g, flags):
     return a
 
 
-def _cheb_g(matvec_g, lv: GMGLevel, x, b, degree: int):
-    """Chebyshev smoothing of D^-1 A on the level's interval, grid-shaped
-    state (amg._chebyshev's recurrence; x=None is a zero initial guess)."""
-    return amg_mod._chebyshev(matvec_g, lv.dinv_g, lv.theta, lv.delta, x, b,
-                              degree)
-
-
 def v_cycle_g(h: GMGPrecond, fine_matvec_g: Callable, r_g, layout=None):
     """One V-cycle, state (*dims, pdim) at every level; level 0 smooths via
     `fine_matvec_g` (the caller's masked operator on the grid), deeper
@@ -256,7 +249,10 @@ def _v(h: GMGPrecond, i: int, mv_g: Callable, r_g, layout=None):
     down, up = ((lambda v: v,) * 2 if layout is None else
                 (lambda v: layout.gather(v).view(gshape),
                  lambda g: layout.scatter(g.reshape(-1))))
-    x = _cheb_g(mv_g, lv, None, r_g, h.degree)
+    # Chebyshev smoothing on the level's interval, grid-shaped state; x=None
+    # is a zero initial guess
+    x = amg_mod._chebyshev(mv_g, lv.dinv_g, lv.theta, lv.delta, None, r_g,
+                           h.degree)
     rc = restrict_g(down(r_g - mv_g(x)), lv.coarsen)
     if i + 1 == len(h.levels):
         # the grid state flattened is the interleaved dof order
@@ -266,7 +262,8 @@ def _v(h: GMGPrecond, i: int, mv_g: Callable, r_g, layout=None):
         xc = _v(h, i + 1,
                 lambda v: bs.matvec(nxt.op, v.reshape(-1)).view(v.shape), rc)
     x = x + up(prolong_g(xc, lv.dims, lv.coarsen))
-    return _cheb_g(mv_g, lv, x, r_g, h.degree)
+    return amg_mod._chebyshev(mv_g, lv.dinv_g, lv.theta, lv.delta, x, r_g,
+                              h.degree)
 
 
 def preconditioner(h: GMGPrecond, fine_matvec: Callable,

@@ -2,9 +2,12 @@
 
 Port of `fem_tpu.solver.multigrid` in one on-device form. CG with a geometric
 multigrid preconditioner on the structured grid replaces MUMPS' sparse LU
-for large box problems: smoothing (Chebyshev or damped Jacobi), trilinear
-prolongation, its adjoint restriction, re-discretized coarse operators and a
-dense coarsest solve, all on the operator's device.
+for large box problems: Chebyshev smoothing by solver/amg._chebyshev (the
+recurrence the SA-AMG and lattice-GMG cycles share, at their degree and
+interval), trilinear prolongation, its adjoint restriction, re-discretized
+coarse operators and a dense coarsest solve, all on the operator's device.
+The cycle is a V-cycle: fem_tpu's W-cycle (gamma = 2) took the V-cycle's 12
+iterations at 2.67x its wall on the 80^3 box on an NVIDIA H100.
 
 Coarse stencils are re-discretized (lam/mu fields average-pooled), Dirichlet
 masks restricted by injection. Grid-shaped (*shape, pdim) state throughout.
@@ -25,39 +28,39 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops import structured
+from fem_tpu_torch.solver import amg
 from fem_tpu_torch.utils import timing
+
+# Coarsening halves every axis while each cell count is even and its half is
+# at least MIN_CELLS, for at most MAX_LEVELS levels.
+MIN_CELLS = 2
+MAX_LEVELS = 32
+# The coarsest level is inverted densely up to COARSE_MAX DOFs. Where
+# coarsening stops above that (an odd cell count), a degree-COARSE_DEGREE
+# Chebyshev polynomial on the level's interval stands in for the coarse
+# solve. fem_tpu takes 40 damped-Jacobi sweeps (omega 0.67) there, which
+# diverge where lambda_max(D^-1 A) > 2 / 0.67, as on 3D elastic grids
+# (~3.6), and leave its cycle indefinite.
+COARSE_MAX = 4096
+COARSE_DEGREE = 40
 
 
 @dataclasses.dataclass(frozen=True)
 class MGLevel:
     op: structured.StencilOperator
-    diag: torch.Tensor  # (ndof,) with 1.0 on masked dofs
+    dinv: torch.Tensor  # (ndof,) 1 / diag, 1.0 on masked dofs
     maskf: torch.Tensor  # (ndof,) 1.0 on constrained dofs
-    # Chebyshev interval [theta - delta, theta + delta] of D^-1 A; 0.0 for
-    # the damped-Jacobi smoother.
-    theta: float = 0.0
-    delta: float = 0.0
+    # Chebyshev interval [theta - delta, theta + delta] of D^-1 A
+    theta: float
+    delta: float
 
 
 @dataclasses.dataclass(frozen=True)
 class MGHierarchy:
     levels: Tuple[MGLevel, ...]
-    # dense inverse of the masked coarsest operator; (0, 0) when the coarsest
-    # level is too large — then coarse_smooth Jacobi sweeps are used instead
-    coarse_inv: torch.Tensor
-    nu_pre: int = 2
-    nu_post: int = 2
-    omega: float = 0.67
-    coarse_smooth: int = 0
-    # "chebyshev": one degree-`degree` polynomial of D^-1 A per half-cycle
-    # instead of nu damped-Jacobi sweeps (~2x fewer 3D MG-CG iterations)
-    smoother: str = "jacobi"
-    degree: int = 3
-    # gamma=2 runs a W-cycle: the coarse correction at every level is applied
-    # twice with a residual update in between (B_W = 2B - B A B, symmetric
-    # when B is, so still a valid CG preconditioner). The fine level's cost
-    # is unchanged; level idx is visited about 2^idx times as often.
-    gamma: int = 1
+    # dense inverse of the masked coarsest operator; None above COARSE_MAX
+    # DOFs, where the COARSE_DEGREE Chebyshev polynomial stands in
+    coarse_inv: Optional[torch.Tensor]
 
 
 def _pool2(field):
@@ -73,7 +76,7 @@ def _pool2(field):
     return out
 
 
-def _lambda_max_level(op, diag, maskf, iters: int = 15, seed: int = 0):
+def _lambda_max_level(op, dinv, maskf, iters: int = 15, seed: int = 0):
     """Power-iteration estimate of lambda_max(D^-1 A_masked), 10% headroom.
     The start vector is np.random.default_rng(seed).standard_normal, as in
     fem_tpu, so theta/delta (and the CG iteration counts) match it."""
@@ -85,26 +88,20 @@ def _lambda_max_level(op, diag, maskf, iters: int = 15, seed: int = 0):
     lam = 1.0
     for _ in range(iters):
         ax = structured.matvec(op, x * keep) * keep + x * maskf
-        y = ax / diag
+        y = ax * dinv
         ny = torch.linalg.norm(y)
         x = y / ny
         lam = float(ny)
     return 1.1 * lam
 
 
-def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
-          min_cells: int = 2,
-          nu_pre: int = 2, nu_post: int = 2, omega: float = 0.67,
-          max_levels: int = 32, smoother: str = "jacobi",
-          degree: int = 3, lb_frac: float = 30.0,
-          gamma: int = 1) -> MGHierarchy:
+def build(op: structured.StencilOperator,
+          bc_dofs: torch.Tensor) -> MGHierarchy:
     """Build the hierarchy from the fine stencil operator and the constrained
-    dof list. Coarsening halves each axis while all cell counts are even and
-    > min_cells; a box element of sizes 2h has k = 2^(pdim-2) k(h), so the
-    coarse operators scale the parent's k_lam/k_mu. smoother="chebyshev"
-    estimates each level's D^-1 A spectrum by power iteration; lb_frac sets
-    the interval's lower end, lambda_max / lb_frac. gamma=2 flags the same
-    hierarchy for W-cycles (see MGHierarchy.gamma)."""
+    dof list. A box element of sizes 2h has k = 2^(pdim-2) k(h), so the
+    coarse operators scale the parent's k_lam/k_mu. Each level's D^-1 A
+    spectrum is estimated by power iteration; its Chebyshev interval is
+    [lambda_max / amg.LB_FRAC, lambda_max]."""
     pdim = op.pdim
     dtype, device = op.k_lam.dtype, op.k_lam.device
     mask = np.zeros(op.ndof, dtype=bool)
@@ -114,21 +111,17 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
     levels = []
     cur_op = op
     cur_mask_grid = mask_grid
-    for _ in range(max_levels):
+    for _ in range(MAX_LEVELS):
         maskf = timing.upload(cur_mask_grid.reshape(-1).astype(np.float64),
                               dtype=dtype, device=device)
-        d = structured.diag(cur_op)
-        d = d * (1.0 - maskf) + maskf
-        theta = delta = 0.0
-        if smoother == "chebyshev":
-            lam_max = _lambda_max_level(cur_op, d, maskf)
-            lb = lam_max / lb_frac
-            theta = float(0.5 * (lam_max + lb))
-            delta = float(0.5 * (lam_max - lb))
-        levels.append(MGLevel(op=cur_op, diag=d, maskf=maskf,
-                              theta=theta, delta=delta))
+        dinv = 1.0 / (structured.diag(cur_op) * (1.0 - maskf) + maskf)
+        lam_max = _lambda_max_level(cur_op, dinv, maskf)
+        lb = lam_max / amg.LB_FRAC
+        levels.append(MGLevel(op=cur_op, dinv=dinv, maskf=maskf,
+                              theta=float(0.5 * (lam_max + lb)),
+                              delta=float(0.5 * (lam_max - lb))))
         cells = tuple(n - 1 for n in cur_op.shape)
-        if any(c % 2 or c // 2 < min_cells for c in cells):
+        if any(c % 2 or c // 2 < MIN_CELLS for c in cells):
             break
         scale = 2.0 ** (pdim - 2)
         cur_op = dataclasses.replace(
@@ -142,12 +135,11 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
         cur_mask_grid = cur_mask_grid[(slice(None, None, 2),) * pdim]
 
     # Dense inverse of the masked coarsest operator, its columns formed by the
-    # level's own matvec. If coarsening stopped early (odd cell count) at a
-    # level too large to invert densely, heavy Jacobi smoothing stands in.
+    # level's own matvec.
     last = levels[-1]
     nc = last.op.ndof
-    coarse_smooth = 0
-    if nc <= 4096:
+    coarse_inv = None
+    if nc <= COARSE_MAX:
         eye = torch.eye(nc, dtype=dtype, device=device)
         K = torch.stack([structured.matvec(last.op, eye[i]) for i in range(nc)],
                         dim=1).cpu().numpy()
@@ -157,14 +149,7 @@ def build(op: structured.StencilOperator, bc_dofs: torch.Tensor,
         K[mask_np, mask_np] = 1.0
         coarse_inv = timing.upload(np.linalg.inv(K), dtype=dtype,
                                    device=device)
-    else:
-        coarse_inv = torch.zeros((0, 0), dtype=dtype, device=device)
-        coarse_smooth = 40
-
-    return MGHierarchy(levels=tuple(levels), coarse_inv=coarse_inv,
-                       nu_pre=nu_pre, nu_post=nu_post, omega=omega,
-                       coarse_smooth=coarse_smooth, smoother=smoother,
-                       degree=degree, gamma=gamma)
+    return MGHierarchy(levels=tuple(levels), coarse_inv=coarse_inv)
 
 
 def _gshape(level: MGLevel):
@@ -182,37 +167,13 @@ def _masked_matvec_g(level: MGLevel, xg, matvec: Optional[Callable] = None):
     return ax * keep + xg * mf
 
 
-def _smooth_g(level: MGLevel, omega, xg, bg, iters: int, matvec=None):
-    """`iters` damped-Jacobi sweeps."""
-    dg = level.diag.reshape(_gshape(level))
-    for _ in range(iters):
-        r = bg - _masked_matvec_g(level, xg, matvec)
-        xg = xg + omega * r / dg
-    return xg
-
-
-def _cheb_g(level: MGLevel, degree: int, xg, bg, matvec=None):
-    """Degree-`degree` Chebyshev smoothing of D^-1 A on the level's
-    [theta-delta, theta+delta] interval (solver/amg._chebyshev's recurrence)."""
-    dg = level.diag.reshape(_gshape(level))
-    theta, delta = level.theta, level.delta
-    sigma = theta / delta
-    rho = 1.0 / sigma
-    r = (bg - _masked_matvec_g(level, xg, matvec)) / dg
-    d = r / theta
-    for _ in range(degree - 1):
-        xg = xg + d
-        r = r - _masked_matvec_g(level, d, matvec) / dg
-        rho_new = 1.0 / (2.0 * sigma - rho)
-        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
-        rho = rho_new
-    return xg + d
-
-
-def _smooth(h: MGHierarchy, level: MGLevel, xg, bg, iters: int, matvec=None):
-    if h.smoother == "chebyshev":
-        return _cheb_g(level, h.degree, xg, bg, matvec)
-    return _smooth_g(level, h.omega, xg, bg, iters, matvec)
+def _chebyshev_g(level: MGLevel, xg, bg, matvec=None,
+                 degree: int = amg.CHEBYSHEV_DEGREE):
+    """amg._chebyshev on the level's interval, grid-shaped state; xg=None is
+    a zero initial guess, whose product is skipped."""
+    return amg._chebyshev(lambda v: _masked_matvec_g(level, v, matvec),
+                          level.dinv.view(bg.shape), level.theta, level.delta,
+                          xg, bg, degree)
 
 
 def _interp_axis(a, axis):
@@ -258,10 +219,9 @@ def restrict_g(rfg, pdim):
 
 
 def v_cycle(h: MGHierarchy, r, fine_matvec: Optional[Callable] = None):
-    """One V(nu_pre, nu_post) cycle (a W-cycle with h.gamma = 2) on a flat
-    (ndof,) residual; linear and symmetric, so a valid CG preconditioner.
-    `fine_matvec` (flat to flat) applies the fine level's K.u in place of
-    the level's own operator."""
+    """One V-cycle on a flat (ndof,) residual; linear and symmetric, so a
+    valid CG preconditioner. `fine_matvec` (flat to flat) applies the fine
+    level's K.u in place of the level's own operator."""
     return _v_g(h, 0, r.reshape(_gshape(h.levels[0])),
                 fine_matvec).reshape(-1)
 
@@ -271,25 +231,19 @@ def _v_g(h: MGHierarchy, idx: int, rg, matvec=None):
     the level operator's own (the fine level over a mesh)."""
     level = h.levels[idx]
     if idx == len(h.levels) - 1:
-        if h.coarse_smooth:
-            return _smooth_g(level, h.omega, torch.zeros_like(rg), rg,
-                             h.coarse_smooth, matvec)
+        if h.coarse_inv is None:
+            return _chebyshev_g(level, None, rg, matvec, COARSE_DEGREE)
         return (h.coarse_inv @ rg.reshape(-1)).reshape(rg.shape)
     pdim = level.op.pdim
     keep = 1.0 - level.maskf.reshape(rg.shape)
-    x = _smooth(h, level, torch.zeros_like(rg), rg, h.nu_pre, matvec)
+    x = _chebyshev_g(level, None, rg, matvec)
     res = (rg - _masked_matvec_g(level, x, matvec)) * keep
     coarse = h.levels[idx + 1]
     keep_c = 1.0 - coarse.maskf.reshape(_gshape(coarse))
     rc = restrict_g(res, pdim) * keep_c
     xc = _v_g(h, idx + 1, rc) * keep_c
-    if h.gamma >= 2 and idx + 1 < len(h.levels) - 1:
-        # W-cycle: one residual-corrected second visit. Skipped when the
-        # child is the coarsest level: its dense inverse is exact.
-        rc2 = (rc - _masked_matvec_g(coarse, xc)) * keep_c
-        xc = xc + _v_g(h, idx + 1, rc2) * keep_c
     x = x + prolong_g(xc, pdim)
-    return _smooth(h, level, x, rg, h.nu_post, matvec)
+    return _chebyshev_g(level, x, rg, matvec)
 
 
 def preconditioner(h: MGHierarchy,

@@ -170,20 +170,20 @@ def _setup_structured(system: System, config: Config, solver: str, spec,
 
     fem_tpu solves decks above its `structured_big_threshold` with a float32
     inner MG-CG under float64 refinement, because a TPU emulates float64.
-    Measured on the 80^3 box (1,594,323 DOFs) on an NVIDIA H100 80GB HBM3 at
-    700.00 W by chip_smoke.py's phase 21, both sides to a true relative
-    residual <= 1e-9, medians of 7 solves: this float64 solve 75.43 ms
-    (70.87-77.72; 12 iterations), solver/mixed.ir_solve 137.89 ms
-    (123.29-162.97; 20 inner iterations in 3 cycles) at its inner tolerance
-    of 1e-4 and 107.85 ms (101.71-116.58; 16 in 3) at 1e-3. The solve is
-    bound by kernel launches, whose number follows the iterations and not
-    the dtype, so the split does not pay here and no row takes it."""
+    The H100 computes float64 natively, and the port measured that split on
+    the 80^3 box (1,594,323 DOFs; NVIDIA H100 80GB HBM3 at 700.00 W, both
+    sides to a true relative residual <= 1e-9, medians of 7 solves): this
+    float64 solve 75.43 ms (70.87-77.72; 12 iterations), the refinement
+    137.89 ms (123.29-162.97; 20 inner iterations in 3 cycles) at an inner
+    tolerance of 1e-4 and 107.85 ms (101.71-116.58; 16 in 3) at 1e-3. The
+    solve is bound by kernel launches, whose number follows the iterations
+    and not the dtype, so the port solves in the config dtype only."""
     log("    Structured grid detected: stencil + multigrid path")
     dtype, dev = system.dtype, system.device
     with timing.span("operator"):
         op = structured.operator_for(system, spec)
     with timing.span("hierarchy"):
-        hier = multigrid.build(op, system.bc_dofs, smoother="chebyshev")
+        hier = multigrid.build(op, system.bc_dofs)
     if config.n_devices and config.n_devices > 1:
         # fem_tpu's stepper.py:380-446: the CG's K.u and the V-cycle's fine
         # level run on cell slabs of the leading axis, u replicated, one

@@ -135,9 +135,8 @@ def test_cli_rejects_unknown_precond():
 
 
 def test_new_modules_and_chip_smoke_leave_jax_out():
-    """No module of the package, the new parallel/ and solver/mixed.py
-    included, nor chip_smoke.py nor a tools/torch_*.py script imports jax
-    or fem_tpu."""
+    """No module of the package, the new parallel/ included, nor
+    chip_smoke.py nor a tools/torch_*.py script imports jax or fem_tpu."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|fem_tpu\b(?!_torch)|.*pallas)",
                      re.M)
     paths = glob.glob(os.path.join(ROOT, "fem_tpu_torch", "**", "*.py"),
@@ -145,7 +144,7 @@ def test_new_modules_and_chip_smoke_leave_jax_out():
     names = {os.path.relpath(p, ROOT) for p in paths}
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/commcount.py", "parallel/ops.py",
-                "parallel/partition.py", "solver/mixed.py"):
+                "parallel/partition.py"):
         assert os.path.join("fem_tpu_torch", rel) in names
     paths += [os.path.join(ROOT, "chip_smoke.py")]
     paths += glob.glob(os.path.join(ROOT, "tools", "torch_*.py"))

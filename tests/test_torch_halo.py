@@ -1,15 +1,12 @@
-"""fem_tpu_torch's slab-sharded stencil (ops/structured.py: matvec_sharded,
-the block layout and halo_matvec, pad_for_devices) and the stepper row on
-it, on the CPU in float64: against the single-device forms and against
-fem_tpu on its 8 virtual CPU devices, the same inputs made from a seed with
-numpy."""
+"""fem_tpu_torch's slab-sharded stencil (ops/structured.py: shard_slabs,
+fields_to_blocks, matvec_sharded) and the stepper row on it, on the CPU in
+float64: against the single-device forms and against fem_tpu on its 8
+virtual CPU devices, the same inputs made from a seed with numpy."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 from fem_tpu.config import Config as JConfig
 from fem_tpu.io import meshgen as j_meshgen
@@ -50,10 +47,6 @@ def pair(shape, cells, fields_seed=None):
     return op, jop
 
 
-def j_shard(mesh, blocks):
-    return jax.device_put(blocks, NamedSharding(mesh, P(mesh.axis_names[0])))
-
-
 @pytest.fixture(scope="module")
 def cube():
     """fem_tpu's tests/test_halo.py grid: 8^3 cells, 4 shards."""
@@ -64,10 +57,18 @@ def cube():
 @pytest.mark.parametrize("fields", [None, 3], ids=["scalar", "fields"])
 def test_matvec_sharded_matches_fem_tpu(cube, fields):
     """Slab-sharded K.u (tolerance 1e-12): the single-device K.u and
-    fem_tpu's matvec_sharded on the same u."""
+    fem_tpu's matvec_sharded on the same u; the per-cell fields cut into
+    fem_tpu's cell slabs (fields_to_blocks)."""
     op, jop, mesh, jmesh = cube
     if fields is not None:
         op, jop = pair(op.shape, (0.125,) * 3, fields_seed=fields)
+        for (lam_b, mu_b), jl, jm in zip(structured.fields_to_blocks(op, 4),
+                                         *j_structured.fields_to_blocks(jop,
+                                                                        4)):
+            np.testing.assert_array_equal(lam_b.numpy(), np.asarray(jl))
+            np.testing.assert_array_equal(mu_b.numpy(), np.asarray(jm))
+    else:
+        assert structured.fields_to_blocks(op, 4) is None
     u = np.random.default_rng(0).normal(size=op.ndof)
     sl = structured.shard_slabs(op, mesh)
     got = structured.matvec_sharded(sl, torch.as_tensor(u))
@@ -80,106 +81,49 @@ def test_matvec_sharded_matches_fem_tpu(cube, fields):
     assert [lop.shape for lop in sl.ops] == [(3, 9, 9)] * 4
 
 
-@pytest.mark.parametrize("fields", [None, 3], ids=["scalar", "fields"])
-def test_halo_matvec_matches_fem_tpu(cube, fields):
-    """K.u on the overlapping block layout (1e-12), block by block against
-    fem_tpu's halo_matvec (its field_blocks from fields_to_blocks);
-    duplicated planes stay consistent."""
-    op, jop, mesh, jmesh = cube
-    jfb = None
-    if fields is not None:
-        op, jop = pair(op.shape, (0.125,) * 3, fields_seed=fields)
-        jfb = tuple(j_shard(jmesh, f)
-                    for f in j_structured.fields_to_blocks(jop, 4))
-        for (lam_b, mu_b), jl, jm in zip(structured.fields_to_blocks(op, 4),
-                                         *jfb):
-            np.testing.assert_array_equal(lam_b.numpy(), np.asarray(jl))
-            np.testing.assert_array_equal(mu_b.numpy(), np.asarray(jm))
-    else:
-        assert structured.fields_to_blocks(op, 4) is None
-    u = np.random.default_rng(1).normal(size=op.ndof)
-    sl = structured.shard_slabs(op, mesh)
-    ub = mesh_mod.scatter(mesh, structured.to_blocks(sl, torch.as_tensor(u)))
-    fb = structured.halo_matvec(sl, ub)
-    assert rel(structured.from_blocks(sl, fb),
-               structured.matvec(op, torch.as_tensor(u))) < 1e-12
-    jub = j_structured.to_blocks(jop, jnp.asarray(u), 4)
-    np.testing.assert_array_equal(torch.stack(ub).numpy(), np.asarray(jub))
-    jfbk = j_structured.halo_matvec(jop, j_shard(jmesh, jub), jmesh,
-                                    field_blocks=jfb)
-    assert rel(torch.stack(fb), jfbk) < 1e-12
-    for d in range(1, 4):
-        assert torch.equal(fb[d][0], fb[d - 1][-1])
-
-
-def test_block_round_trip_and_weighted_dot(cube):
-    """from_blocks inverts to_blocks; the weighted dot on blocks is the
-    plain dot (1e-12); the weights are fem_tpu's."""
-    op, jop, mesh, _ = cube
-    rng = np.random.default_rng(2)
-    u, v = (torch.as_tensor(rng.normal(size=op.ndof)) for _ in range(2))
-    sl = structured.shard_slabs(op, mesh)
-    ub, vb = structured.to_blocks(sl, u), structured.to_blocks(sl, v)
-    assert torch.equal(structured.from_blocks(sl, ub), u)
-    w = structured.block_weights(sl, u.dtype)
-    np.testing.assert_array_equal(
-        torch.stack(w).numpy(),
-        np.asarray(j_structured.block_weights(jop, 4, jnp.float64)))
-    dot = sum(float((wi * a * b).sum()) for wi, a, b in zip(w, ub, vb))
-    assert abs(dot - float(u @ v)) <= 1e-12 * abs(float(u @ v))
-
-
 def test_unequal_slabs_and_more_shards_than_cells():
     """7 leading cells over 4 shards are slabs of 2, 2, 2 and 1 cells
     (fem_tpu pads to 8 with phantom cells); over 8 shards the last slab has
-    no cell. matvec_sharded is exact on both (1e-12); the block layout needs
-    a cell in every slab."""
+    no cell. matvec_sharded is exact on both (1e-12)."""
     op, _ = pair((8, 5, 5), (0.1, 0.2, 0.2))
     u = torch.as_tensor(np.random.default_rng(4).normal(size=op.ndof))
     ref = structured.matvec(op, u)
     sl4 = structured.shard_slabs(op, mesh_mod.make_mesh(4, device="cpu"))
     assert sl4.bounds == ((0, 2), (2, 4), (4, 6), (6, 7))
     assert rel(structured.matvec_sharded(sl4, u), ref) < 1e-12
-    fb = structured.halo_matvec(sl4, structured.to_blocks(sl4, u))
-    assert rel(structured.from_blocks(sl4, fb), ref) < 1e-12
     sl8 = structured.shard_slabs(op, mesh_mod.make_mesh(8, device="cpu"))
     assert sl8.bounds[-1] == (7, 7) and sl8.ops[-1].shape == (1, 5, 5)
     assert rel(structured.matvec_sharded(sl8, u), ref) < 1e-12
-    with pytest.raises(ValueError, match="a cell in every slab"):
-        structured.halo_matvec(sl8, structured.to_blocks(sl8, u))
 
 
-def test_pad_for_devices_matches_fem_tpu():
-    """fem_tpu's tests/test_halo.py:145-170: the padded operator is
-    fem_tpu's (shape and fields), its K.u on embedded vectors is the
-    unpadded K.u (1e-12), sharded or not; a no-op when divisible."""
-    shape, cells = (8, 5, 5), (0.1, 0.2, 0.2)
-    op, jop = pair(shape, cells)
-    op_p, embed, extract = structured.pad_for_devices(op, 4)
-    jop_p, jembed, jextract = j_structured.pad_for_devices(jop, 4)
-    assert op_p.shape == jop_p.shape == (9, 5, 5)
-    for got, want in ((op_p.lam, jop_p.lam), (op_p.mu, jop_p.mu)):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    u = np.random.default_rng(4).normal(size=op.ndof)
-    tu = torch.as_tensor(u)
-    np.testing.assert_array_equal(embed(tu).numpy(),
-                                  np.asarray(jembed(jnp.asarray(u))))
-    assert torch.equal(extract(embed(tu)), tu)
-    ref = structured.matvec(op, tu)
-    assert rel(extract(structured.matvec(op_p, embed(tu))), ref) < 1e-12
-    sl = structured.shard_slabs(op_p, mesh_mod.make_mesh(4, device="cpu"))
-    assert [e - s for s, e in sl.bounds] == [2, 2, 2, 2]
-    got = extract(structured.matvec_sharded(sl, embed(tu)))
-    assert rel(got, ref) < 1e-12
-    assert rel(got, jextract(j_structured.matvec_sharded(
-        jop_p, jembed(jnp.asarray(u)), j_make_mesh(4)))) < 1e-12
-    # per-cell fields pad with zero cells as well
-    opf, jopf = pair(shape, cells, fields_seed=5)
-    np.testing.assert_array_equal(
-        structured.pad_for_devices(opf, 4)[0].lam.numpy(),
-        np.asarray(j_structured.pad_for_devices(jopf, 4)[0].lam))
-    op9, _ = pair((9, 4, 4), cells)
-    assert structured.pad_for_devices(op9, 4)[0] is op9
+@pytest.mark.parametrize("kind,shards", [
+    ("2d", 2), ("2d", 3), ("2d", 5), ("2d", 7), ("2d_fields", 6),
+    ("3d", 2), ("3d", 5), ("3d_fields", 3),
+], ids=lambda v: str(v))
+def test_matvec_sharded_any_shard_count(kind, shards):
+    """matvec_sharded equals the single-device K.u (1e-12) for any shard
+    count, on slabs of the leading axis: y on the (ny, nx) node grid of a
+    2D operator (11 cells, so no count divides it), x in 3D (7 cells). The
+    slabs differ by at most one cell and cover every cell once; each
+    scalar-material slab keeps the scalar (K2's tables), each field slab
+    its own cells' fields."""
+    shape, cells = (((12, 9), (0.1, 0.15)) if kind.startswith("2d") else
+                    ((8, 5, 6), (0.1, 0.2, 0.15)))
+    op, _ = pair(shape, cells,
+                 fields_seed=7 if kind.endswith("fields") else None)
+    sl = structured.shard_slabs(op, mesh_mod.make_mesh(shards, device="cpu"))
+    sizes = [e - s for s, e in sl.bounds]
+    assert sum(sizes) == shape[0] - 1 and max(sizes) - min(sizes) <= 1
+    assert [lop.shape for lop in sl.ops] == [(c + 1,) + shape[1:]
+                                             for c in sizes]
+    if kind.endswith("fields"):
+        for (s, e), lop in zip(sl.bounds, sl.ops):
+            assert torch.equal(lop.lam, op.lam[s:e])
+    else:
+        assert all(lop.tables is not None for lop in sl.ops)
+    u = torch.as_tensor(np.random.default_rng(shards).normal(size=op.ndof))
+    assert rel(structured.matvec_sharded(sl, u),
+               structured.matvec(op, u)) < 1e-12
 
 
 # ---------------- the stepper rows ----------------

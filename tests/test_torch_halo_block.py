@@ -136,26 +136,6 @@ def test_blockstencil_halo_matvec_matches_fem_tpu(nd):
     assert rel(out, jout) < 1e-12
 
 
-def test_pad_rows_and_embed_rows(lattice):
-    """The equal-slab helpers of fem_tpu's layout: pad_rows pads the leading
-    axis up to a multiple of the shards with zero rows, embed_rows_g the
-    grid with zero planes; the padded operator's K.u on real rows is exact
-    (1e-12) and zero on phantom rows."""
-    op = lattice
-    opp = bs.pad_rows(op, 4)
-    assert opp.dims == (8, 7, 7)  # fem_tpu's pad_rows: 7 rows up to 8
-    assert bs.pad_rows(op, 7) is op
-    u_g = torch.as_tensor(
-        np.random.default_rng(1).standard_normal(op.dims + (3,)))
-    up = bs.embed_rows_g(u_g, 8)
-    assert up.shape == (8, 7, 7, 3) and not up[7].any()
-    assert bs.embed_rows_g(u_g, 7) is u_g
-    out = bs.matvec(opp, up.reshape(-1)).view(8, 7, 7, 3)
-    assert rel(out[:7].reshape(-1), bs.matvec(op, u_g.reshape(-1))) < 1e-12
-    assert not out[7].any()
-    assert [v.shape[0] for v in bs.vals_to_slabs(opp, 4)] == [2 * 49] * 4
-
-
 @pytest.mark.parametrize("kw,hier,shards", [
     (dict(), "smoothed aggregation", 4),
     (dict(gmg_min=1), "Geometric lattice-MG", 4),

@@ -75,16 +75,6 @@ def test_native_parse_error_messages():
         native.parse("implicit 2 1\n1 3 1 0 0 0 0 0\n1.0 1.0\ntri 1 2 9 1 0\n")
 
 
-def test_morton_order_is_permutation_and_local():
-    c = np.random.default_rng(0).uniform(size=(500, 3))
-    order = native.morton_order(c)
-    assert sorted(order.tolist()) == list(range(500))
-    np.testing.assert_array_equal(order, j_native.morton_order(c))
-    d_sorted = np.linalg.norm(np.diff(c[order], axis=0), axis=1).mean()
-    d_orig = np.linalg.norm(np.diff(c, axis=0), axis=1).mean()
-    assert d_sorted < 0.6 * d_orig
-
-
 @pytest.mark.parametrize("nparts", [2, 3, 8])
 def test_rcb_partition_balance(nparts):
     c = np.random.default_rng(1).uniform(size=(1000, 2))
@@ -119,16 +109,14 @@ def test_load_backend_dispatch(monkeypatch):
 
 
 def test_without_library_every_native_call_raises(monkeypatch):
-    """Without the library the parser and morton_order raise fem_tpu's
-    RuntimeError; rcb_partition, which `--shards` calls, takes its numpy
-    form as fem_tpu's does (tests/test_torch_partition.py holds it to the
-    library)."""
+    """Without the library the parser raises fem_tpu's RuntimeError;
+    rcb_partition, which `--shards` calls, takes its numpy form as fem_tpu's
+    does (tests/test_torch_partition.py holds it to the library)."""
     monkeypatch.setattr(native, "_load", lambda: None)
     assert not native.available()
     c = np.random.default_rng(0).random((10, 3))
     for call in (lambda: native.parse_flat(DECKS[0]),
-                 lambda: native.parse(DECKS[0]),
-                 lambda: native.morton_order(c)):
+                 lambda: native.parse(DECKS[0])):
         with pytest.raises(RuntimeError, match="native mesh engine not built"):
             call()
     part = native.rcb_partition(c, 2)

@@ -117,8 +117,6 @@ def test_numpy_rcb_matches_the_library(nparts, monkeypatch):
     np.testing.assert_array_equal(part_mod.partition(p, nparts), lib)
     monkeypatch.setattr(j_native, "_load", lambda: None)
     np.testing.assert_array_equal(j_native.rcb_partition(cent, nparts), lib)
-    with pytest.raises(RuntimeError, match="not built"):
-        native.morton_order(cent)
 
 
 def test_cli_shard_vtks_byte_identical_to_fem_tpu(tmp_path, monkeypatch):

@@ -122,7 +122,7 @@ def test_k2_tables_follow_the_operator():
     assert torch.equal(coarse.k_ref, 2 * k_ref)
     assert coarse.tables.shape == (5, 4, 3)
     assert torch.equal(coarse.tables.coef[13], 2 * op.tables.coef[13])
-    op32 = op.astype(torch.float32)
+    op32, _ = pair((9, 7, 6), dtype=np.float32)
     assert op32.tables.coef.dtype == op32.tables.interior.dtype == torch.float32
 
 
@@ -131,7 +131,7 @@ def test_k2_tables_on_every_mg_level():
     to 3^3 nodes) each apply their own tables as the per-corner form does."""
     op, _ = pair((17, 17, 17), (1 / 16,) * 3)
     bc = torch.arange(17 * 17 * 3)  # the x = 0 face
-    h = multigrid.build(op, bc, smoother="chebyshev")
+    h = multigrid.build(op, bc)
     assert [lv.op.shape for lv in h.levels] == [(n,) * 3 for n in (17, 9, 5, 3)]
     for i, lv in enumerate(h.levels):
         u = torch.as_tensor(np.random.default_rng(i).standard_normal(

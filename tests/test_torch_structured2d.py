@@ -185,7 +185,7 @@ def test_2d_tables_on_every_mg_level():
     form does."""
     op, _ = pair((33, 65), (1 / 64, 1 / 32))
     bc = torch.arange(0, 33 * 65 * 2, 65 * 2)  # x = 0 edge, x component
-    h = multigrid.build(op, bc, smoother="chebyshev")
+    h = multigrid.build(op, bc)
     assert [lv.op.shape for lv in h.levels] == [(33, 65), (17, 33), (9, 17),
                                                 (5, 9), (3, 5)]
     for i, lv in enumerate(h.levels):
@@ -268,7 +268,7 @@ def test_make_example_strip_through_both_clis(tmp_path, monkeypatch, args):
                          ids=["4_equal_slabs", "3_unequal_slabs"])
 def test_2d_slab_stencil_matches_single_device(monkeypatch, shards, sizes):
     """The 2D slab-sharded row: slabs along y, the leading axis of the (ny,
-    nx) node grid. matvec_sharded and halo_matvec equal matvec (1e-12); the
+    nx) node grid. matvec_sharded equals matvec (1e-12); the
     sharded stepper run takes the single-device run's iterations and its u
     (1e-9), and K2's wrapper runs on every slab grid."""
     p = meshgen.quad_grid_problem(16, 8, lx=2.0, ly=1.0, E=100.0, nu=0.3,
@@ -286,9 +286,6 @@ def test_2d_slab_stencil_matches_single_device(monkeypatch, shards, sizes):
     u = torch.as_tensor(np.random.default_rng(5).standard_normal(op.ndof))
     ref = structured.matvec(op, u)
     assert rel(structured.matvec_sharded(sl, u), ref) < 1e-12
-    blocks = mesh_mod.scatter(mesh, structured.to_blocks(sl, u))
-    assert rel(structured.from_blocks(sl, structured.halo_matvec(sl, blocks)),
-               ref) < 1e-12
 
     single = stepper.run(p, Config(device="cpu", solver="cg", rtol=1e-12))
     grids = []

@@ -46,7 +46,10 @@ def main(argv=None) -> int:
                     help="replicate reference cohesive defects bit-for-bit")
     ap.add_argument("--formulation", default="auto",
                     choices=["reference", "standard", "total", "auto"],
-                    help="cohesive residual (default: auto)")
+                    help="cohesive residual (default: auto): reference, "
+                         "the incremental standard, or total (true "
+                         "equilibrium each step; dense under the direct "
+                         "solver, matrix-free under cg)")
     ap.add_argument("-o", "--output-prefix", default="",
                     help="directory/prefix for VTK output")
     ap.add_argument("--checkpoint-dir", default=None,

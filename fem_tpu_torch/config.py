@@ -50,8 +50,10 @@ class Config:
         "standard" is the textbook incremental R(du) = K_el du - F_ext -
         F_coh(aggregate_u + du); "total" solves the true equilibrium
         K_el u = F_ext_cumulative(t) + F_coh(u) at each step end (what matches
-        the Abaqus UEL cross-validation). "auto": "reference" under penalty
-        BCs (deck parity), "standard" otherwise.
+        the Abaqus UEL cross-validation): a dense Newton under the direct
+        solver, else the matrix-free Newton-Krylov, so at any size above
+        `direct_threshold`, and under `n_devices` as the other forms. "auto":
+        "reference" under penalty BCs (deck parity), "standard" otherwise.
       forcing: inner tolerance of the matrix-free Newton-Krylov solve: "ew"
         (Eisenstat-Walker choice 2) or "fixed" (1e-6).
       inner_krylov: "auto" (CG, with a GMRES fallback when the cohesive
@@ -79,8 +81,8 @@ class Config:
         AMG deck; the halo-gather tier, else the element-sharded operator
         (parallel/ops.py), on any other AMG deck; the element-sharded
         operator under Jacobi-PCG and under a cohesive deck's matrix-free
-        Newton. Direct solves, formulation "total" and explicit runs ignore
-        it.
+        Newton, in either residual form. Direct solves (the dense Newton
+        forms among them) and explicit runs ignore it.
     """
 
     device: str = "cuda"

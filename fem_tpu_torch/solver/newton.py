@@ -21,7 +21,10 @@ Three forms, one Newton each:
   - solve_step_matfree: matrix-free Newton-Krylov, J v = K_el v + K_coh(u) v,
     with PCG (Jacobi, or lattice GMG / SA-AMG built once per run on the
     zero-opening tangent, see MatfreeOperators), Eisenstat-Walker forcing and
-    a GMRES fallback when the tangent turns indefinite.
+    a GMRES fallback when the tangent turns indefinite. Its residual is the
+    incremental one or, under formulation="total", solve_step_total's true
+    equilibrium, so the total form needs no dense matrix above the direct
+    threshold.
 
 Newton controls follow SNES defaults (Config.newton_*): rtol 1e-8 relative to
 the first residual of each solve, atol 1e-50, stol 1e-8, 50 iterations, with
@@ -57,6 +60,8 @@ class NewtonResult(NamedTuple):
     gmres_fallbacks: int = 0
     # inner Krylov iterations over all Newton iterations (matrix-free form)
     inner_iters: int = 0
+    # residual evaluations, the line search's trials included
+    residuals: int = 0
 
 
 def _norm(x) -> float:
@@ -99,9 +104,22 @@ def _line_search(residual: Callable, pin: Callable, x, delta, rnorm: float,
     return best
 
 
+def _counted(residual: Callable):
+    """(residual, calls): `residual` that counts its calls in calls[0]."""
+    calls = [0]
+
+    def counted(x):
+        calls[0] += 1
+        return residual(x)
+
+    return counted, calls
+
+
 def _dense_newton(residual, jacobian, pin, x, config: Config, kref,
                   halvings: int):
-    """The dense Newton loop shared by solve_step and solve_step_total."""
+    """The dense Newton loop shared by solve_step and solve_step_total.
+    Returns (x, iterations, residual norm, converged, residual calls)."""
+    residual, calls = _counted(residual)
     R = residual(x)
     rnorm = _norm(R)
     tol = max(config.newton_rtol * rnorm, config.newton_atol)
@@ -119,7 +137,7 @@ def _dense_newton(residual, jacobian, pin, x, config: Config, kref,
         if rnorm <= tol or step_norm <= config.newton_stol * max(
                 _norm(x), 1e-300):
             converged = True
-    return x, iters, rnorm, converged
+    return x, iters, rnorm, converged, calls[0]
 
 
 def solve_step(system: System, config: Config, aggregate_u, du0, F_ext,
@@ -160,10 +178,11 @@ def solve_step(system: System, config: Config, aggregate_u, du0, F_ext,
     def pin(du):
         return du if penalty else torch.where(mask, ubc, du)
 
-    du, iters, rnorm, converged = _dense_newton(
+    du, iters, rnorm, converged, nres = _dense_newton(
         residual, jacobian, pin, pin(du0), config, K_el.abs().max(),
         halvings=20)
-    return NewtonResult(du=du, iters=iters, resnorm=rnorm, converged=converged)
+    return NewtonResult(du=du, iters=iters, resnorm=rnorm, converged=converged,
+                        residuals=nres)
 
 
 def solve_step_total(system: System, config: Config, aggregate_u, du0,
@@ -197,11 +216,11 @@ def solve_step_total(system: System, config: Config, aggregate_u, du0,
     def pin(u):
         return torch.where(mask, u_bc, u)
 
-    u, iters, rnorm, converged = _dense_newton(
+    u, iters, rnorm, converged, nres = _dense_newton(
         residual, jacobian, pin, pin(aggregate_u + du0), config,
         K_el.abs().max(), halvings=25)
     return NewtonResult(du=u - aggregate_u, iters=iters, resnorm=rnorm,
-                        converged=converged)
+                        converged=converged, residuals=nres)
 
 
 # ---------------- matrix-free Newton-Krylov ----------------
@@ -278,11 +297,15 @@ def matfree_operators(system: System, config: Config,
 
 def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
                        F_ext, ops: Optional[MatfreeOperators] = None,
-                       log: Optional[Callable[[str], None]] = None
-                       ) -> NewtonResult:
+                       log: Optional[Callable[[str], None]] = None,
+                       t_end: Optional[float] = None) -> NewtonResult:
     """Matrix-free Newton-Krylov for large cohesive problems.
 
-    solve_step's residual and Jacobian (eliminated BCs), with J delta = -R
+    solve_step's residual and Jacobian (eliminated BCs) or, under
+    formulation="total", solve_step_total's: R = K_el u - F_ext_cumulative(
+    t_end) - F_coh(u) with u = aggregate_u + du, the held dofs of u pinned to
+    their total ramp value at t_end (F_ext is then not read). Either way the
+    unknown is the increment du, warm-started at du0, and J delta = -R is
     solved matrix-free, J v = K_el v + K_coh(u) v, by PCG: Jacobi with |diag J|
     and max(200, 4 sqrt(n)) iterations, or 200 iterations around the run's
     hierarchy (`ops`, built here when not given). The cohesive element
@@ -302,10 +325,19 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
     """
     log = log or (lambda m: None)
     quirks = config.quirks
-    reference_form = config.resolve_formulation("eliminate") == "reference"
+    form = config.resolve_formulation("eliminate")
+    total = form == "total"
     allow_gmres = config.inner_krylov != "cg"
     n = system.ndof
-    mask, ubc = _bc_state(system, system.bc_step_vals())
+    if total:
+        if t_end is None:
+            raise ValueError('formulation "total" needs the step\'s end time')
+        F_ext = system.rhs_cumulative(t_end)
+        # du's held values: the total ramp value less what u holds already
+        mask, ubc = _bc_state(system, system.bc_total_vals(t_end)
+                              - aggregate_u[system.bc_dofs])
+    else:
+        mask, ubc = _bc_state(system, system.bc_step_vals())
     if ops is None:
         ops = matfree_operators(system, config, log)
     el_mv = ops.el_mv
@@ -313,11 +345,13 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
 
     def residual(du):
         u = aggregate_u + du
-        R = el_mv(du)
-        if reference_form:
+        R = el_mv(u if total else du)
+        if form == "reference":
             R = R + system.coh_matvec(u, du, quirks)
         R = R - (F_ext + system.coh_force(u, quirks))
         return torch.where(mask, du - ubc, R)
+
+    residual, calls = _counted(residual)
 
     def pin(du):
         return torch.where(mask, ubc, du)
@@ -328,7 +362,8 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
     def jacobian(du):
         """The masked J v at du, and its |diagonal| (lazily: only the Jacobi
         path and the GMRES fallback need it)."""
-        ke = system.coh_ke(aggregate_u + du, quirks)
+        with timing.span("tangent"):
+            ke = system.coh_ke(aggregate_u + du, quirks)
         mv = cg.masked_operator(lambda v: el_mv(v) + system.coh_apply(ke, v),
                                 mask)
 
@@ -425,4 +460,5 @@ def solve_step_matfree(system: System, config: Config, aggregate_u, du0,
     log("newton wall: inner %.2fs, linesearch %.2fs, residual %.2fs"
         % (tw["inner"], tw["linesearch"], tw["residual"]))
     return NewtonResult(du=du, iters=iters, resnorm=rnorm, converged=converged,
-                        gmres_fallbacks=fallbacks, inner_iters=inner_total)
+                        gmres_fallbacks=fallbacks, inner_iters=inner_total,
+                        residuals=calls[0])

@@ -28,8 +28,9 @@ Config.n_devices > 1 (the reference's `mpiexec -n N`, fem_tpu
     operator (parallel/ops.ShardedOperator, one all-reduce per K.u)
     (`sharded_amg_cg`);
   - below the AMG threshold, and under the matrix-free Newton of a cohesive
-    deck: the element-sharded operator.
-Direct solves, formulation "total" and explicit runs ignore it, as in fem_tpu.
+    deck (either residual form): the element-sharded operator.
+Direct solves, the dense Newton forms among them, and explicit runs ignore
+it, as in fem_tpu.
 
 Viscoelastic creep (Config.viscoelastic) is not a path: on every linear row
 it adds System.creep_force of the per-ip creep state to the step's RHS, and
@@ -109,10 +110,12 @@ class StepResult:
     nsteps: int
     path: str
     # per step, cohesive decks only: Newton iterations, whether Newton met
-    # its tolerance, and the inner solves that took the GMRES fallback
+    # its tolerance, the inner solves that took the GMRES fallback, and the
+    # residual evaluations (line-search trials included)
     newton_iters: List[int] = dataclasses.field(default_factory=list)
     newton_converged: List[bool] = dataclasses.field(default_factory=list)
     gmres_fallbacks: List[int] = dataclasses.field(default_factory=list)
+    newton_residuals: List[int] = dataclasses.field(default_factory=list)
     # phase wall-clock totals (setup, rhs, solve or newton, stress) and the
     # run's span tree and counters
     timers: Optional[Timers] = None
@@ -444,15 +447,19 @@ def _setup_sharded_amg(system: System, config: Config, solver: str, A_csr,
 
 def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
     """The cohesive Newton path (fem_tpu's stepper.py:1264-1288), one Newton
-    solve per step, logged as the reference's "SNES Iteration Count".
-    formulation "total" takes the dense true-equilibrium Newton, the direct
-    solver the dense incremental one (SNES with the MUMPS stand-in), and
-    otherwise the matrix-free Newton-Krylov, whose operators and hierarchy
-    are built here, once for the run; with Config.n_devices > 1 its elastic
-    products run on the element-sharded operator (fem_tpu's
-    stepper.py:303-314; the dense forms ignore the mesh)."""
+    solve per step, logged as the reference's "SNES Iteration Count". The
+    direct solver takes the dense Newton: the true-equilibrium one under
+    formulation "total", else the incremental one (SNES with the MUMPS
+    stand-in). The iterative solver takes the matrix-free Newton-Krylov in
+    either form, its operators and hierarchy built here, once for the run;
+    with Config.n_devices > 1 its elastic products run on the
+    element-sharded operator (fem_tpu's stepper.py:303-314; the dense forms
+    ignore the mesh). Each step adds its Newton iterations, residual
+    evaluations, inner Krylov iterations and GMRES fallbacks to the run's
+    counters `newton_iters`, `newton_residuals`, `inner_iters` and
+    `gmres_fallbacks`."""
     sublog = lambda m: log("    " + m)  # noqa: E731
-    if config.formulation == "total":
+    if solver == "direct" and config.formulation == "total":
         def newton_step(F, du, agg, t_end):
             return newton.solve_step_total(system, config, agg, du, t_end)
     elif solver == "direct":
@@ -471,11 +478,16 @@ def _setup_cohesive(system: System, config: Config, solver: str, spec, log):
 
         def newton_step(F, du, agg, t_end):
             return newton.solve_step_matfree(system, config, agg, du, F,
-                                             ops=ops, log=sublog)
+                                             ops=ops, log=sublog, t_end=t_end)
 
     def step(F, du_prev, aggregate_u, t_end):
         res = newton_step(F, du_prev, aggregate_u, t_end)
         log(f"    SNES Iteration Count: {res.iters}")
+        for name, n in (("newton_iters", res.iters),
+                        ("newton_residuals", res.residuals),
+                        ("inner_iters", res.inner_iters),
+                        ("gmres_fallbacks", res.gmres_fallbacks)):
+            timing.count(name, n)
         return Increment(res.du, res.inner_iters, res)
 
     return step
@@ -531,6 +543,7 @@ def _run(problem: Problem, config: Config, log, tm: Timers) -> StepResult:
     newton_iters: List[int] = []
     newton_converged: List[bool] = []
     gmres_fallbacks: List[int] = []
+    newton_residuals: List[int] = []
     nsteps = problem.nsteps
     first_step = 1
     resumed_creep = None
@@ -605,6 +618,7 @@ def _run(problem: Problem, config: Config, log, tm: Timers) -> StepResult:
                 newton_iters.append(inc.newton.iters)
                 newton_converged.append(inc.newton.converged)
                 gmres_fallbacks.append(inc.newton.gmres_fallbacks)
+                newton_residuals.append(inc.newton.residuals)
             aggregate_u = aggregate_u + du
             with tm.phase("stress"):
                 if creep_state:
@@ -637,5 +651,6 @@ def _run(problem: Problem, config: Config, log, tm: Timers) -> StepResult:
         newton_iters=newton_iters,
         newton_converged=newton_converged,
         gmres_fallbacks=gmres_fallbacks,
+        newton_residuals=newton_residuals,
         timers=tm,
     )
